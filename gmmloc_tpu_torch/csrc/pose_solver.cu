@@ -229,7 +229,7 @@ struct Inputs {
 };
 
 struct Outputs {
-  float* pose;          // (16,) q(4) t(3) n_inliers n_anchors
+  float* pose;          // (16,) q(4) t(3) n_inliers n_anchors gn_iters
   float* chi2;          // (F,)
   uint8_t* outlier;     // (F,) bool
   uint8_t* anc_outlier;  // (F,) bool (K2 only)
@@ -242,6 +242,7 @@ pose_solve_kernel(Inputs in, Outputs out) {
   __shared__ PoseState cur;
   __shared__ int done;
   __shared__ int counts[2];
+  __shared__ int n_iters;  // GN steps run, all rounds (thread 0 only)
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int n = in.n;
@@ -256,6 +257,7 @@ pose_solve_kernel(Inputs in, Outputs out) {
     if (ANC) out.anc_outlier[i] = 0;
   }
   float qf[4], tf[3];
+  if (tid == 0) n_iters = 0;
 
   for (int rd = 0; rd < in.rounds; ++rd) {
     const bool use_huber = rd < 3;
@@ -303,6 +305,7 @@ pose_solve_kernel(Inputs in, Outputs out) {
       }
       __syncthreads();
       if (tid == 0) {
+        ++n_iters;
         float s[kSums];
         for (int k = 0; k < kSums; ++k) {
           float v = 0.f;
@@ -393,7 +396,8 @@ pose_solve_kernel(Inputs in, Outputs out) {
     for (int k = 0; k < 3; ++k) out.pose[4 + k] = tf[k];
     out.pose[7] = (float)counts[0];
     out.pose[8] = (float)counts[1];
-    for (int k = 9; k < 16; ++k) out.pose[k] = 0.f;
+    out.pose[9] = (float)n_iters;
+    for (int k = 10; k < 16; ++k) out.pose[k] = 0.f;
   }
 }
 

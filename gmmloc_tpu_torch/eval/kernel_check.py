@@ -1,15 +1,20 @@
 """Kernel-against-plain-version checks on the card.
 
 Seeded problems at the main path's shapes, the comparison of each CUDA
-kernel (K1, K2, K3) with its plain PyTorch version on the same inputs, and
-CUDA-event timing. Used by `chip_smoke.py` and the card tests.
+kernel (K1, K2, K3, K4) with its plain PyTorch version on the same
+inputs, CUDA-event timing, and each kernel's bound: the least time the
+card could take for the same work, the larger of the bytes it must move
+(each input read once, each output written once) over the memory rate
+and the operations these inputs need over the peak rate for their type.
+Used by `chip_smoke.py` and the card tests.
 
 Gates (stated with their reason): the pose kernels sum the 27 normal-
 equation terms in another order than the plain version, so they agree to
 float tolerance -- rotation < 0.01 deg (K2: 0.02), translation < 1e-3 m
 (K2: 2e-3), outlier-flag difference <= 2 (K2: 3, anchor flags <= 3),
 inlier-count difference <= 2; flags may differ only at the chi2 gate.
-The Hamming kernel is integer arithmetic and must be exact.
+The Hamming kernel is integer arithmetic and must be exact; the FAST+NMS
+kernel is float32 subtract/min/max/compare and must be exact too.
 """
 
 from __future__ import annotations
@@ -18,11 +23,39 @@ import numpy as np
 import torch
 
 from ..solver import cuda_pose, pose_solver
-from ..features import cuda_kernels
+from ..features import cuda_kernels, fast_kernels
 
 K1_GATES = dict(rot_deg=0.01, trans=1e-3, outlier_diff=2, inlier_diff=2)
 K2_GATES = dict(rot_deg=0.02, trans=2e-3, outlier_diff=3, inlier_diff=3,
                 anchor_diff=3)
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): HBM bytes/s,
+# float32 FMA FLOP/s outside the tensor cores, and simple 32-bit lane
+# operations/s (add, min, max, compare, xor, popc: one per lane per
+# clock, half the FMA FLOP rate, which counts an FMA as two)
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+LANE_OPS_S = 33.5e12
+# float32 operations per feature and Gauss-Newton step of the pose
+# solves: reprojection and its 3x6 Jacobian (~60), robust weight (~10),
+# the 27 normal-equation sums (~160); the anchor term adds ~200 (K2)
+K1_FLOPS_PER_FEATURE_ITER = 230
+K2_FLOPS_PER_FEATURE_ITER = 430
+# Hamming: per distance 8 words x (xor, popc, add)
+K3_OPS_PER_PAIR = 24
+# FAST + NMS per pixel: 16 ring subtracts, 16 negations, 2 x 79 for the
+# bright and dark arc-minimum passes (48 + 16 mins, 15 max), the two
+# threshold selects and the max (5), the border test (4), the NMS (8 max,
+# one add, one compare, one select)
+K4_OPS_PER_PIXEL = 16 + 16 + 2 * 79 + 5 + 4 + 11
+
+
+def bound(n_bytes: float, n_ops: float, ops_per_s: float) -> dict:
+    """The least time for the work: max(bytes / HBM rate, ops / peak)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_per_s
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bytes=int(n_bytes), ops=int(n_ops))
 
 
 def pose_problem(cam, n: int, seed: int = 0, anchored: bool = False,
@@ -157,6 +190,14 @@ def check_pose_kernel(cam, n: int, anchored: bool, device, seed: int = 0,
     ref = plain(cam, *args)
     m = compare_pose(ref, out, anchored)
     m["ok"] = within(m, gates)
+    # work these inputs need: the GN steps the kernel ran (it stops a
+    # round early on convergence) over every feature, plus the bytes of
+    # each input and output once
+    m["gn_iters"] = int(out.gn_iters)
+    n_in = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
+    n_out = 16 * 4 + n * (4 + 1 + (1 if anchored else 0))
+    flops = K2_FLOPS_PER_FEATURE_ITER if anchored else K1_FLOPS_PER_FEATURE_ITER
+    m.update(bound(n_in + n_out, m["gn_iters"] * n * flops, FP32_FLOP_S))
     if timing:
         m["ms"] = time_cuda(lambda: kern(cam, *args))
         m["plain_ms"] = time_cuda(lambda: plain(cam, *args), reps=5, warmup=1)
@@ -178,7 +219,41 @@ def check_hamming_kernel(n: int, m: int, device, seed: int = 0,
     r = dict(max_abs_err=int((out - ref).abs().max()) if out.numel() else 0,
              shape=[n, m])
     r["ok"] = r["max_abs_err"] == 0 and out.dtype == torch.int32
+    r.update(bound((n + m) * 32 + n * m * 4, n * m * K3_OPS_PER_PAIR, LANE_OPS_S))
     if timing:
         r["ms"] = time_cuda(lambda: cuda_kernels.hamming_matrix(a, b))
         r["plain_ms"] = time_cuda(lambda: cuda_kernels.hamming_matrix_plain(a, b))
+        # the library yardstick: one cdist call on the descriptors
+        # unpacked to 0/1 floats (the unpacking stays outside the clock)
+        bits = lambda d: ((d[:, :, None] >> torch.arange(8, device=d.device)) & 1) \
+            .reshape(d.shape[0], 256).to(torch.float32)
+        ba, bb = bits(a), bits(b)
+        r["library_equal"] = bool(torch.equal(torch.cdist(ba, bb, p=0).to(torch.int32), ref))
+        r["library_ms"] = time_cuda(lambda: torch.cdist(ba, bb, p=0))
+    return r
+
+
+def random_image(h: int, w: int, device, seed: int = 0):
+    """(h, w) float32 image of random integers in [0, 255]."""
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.integers(0, 256, (h, w)).astype(np.float32), device=device)
+
+
+def check_fast_kernel(img, timing: bool = True) -> dict:
+    """K4 against its plain version on one (H, W) float32 image on the
+    card: must be exact over the whole output."""
+    n0 = fast_kernels.fast_score_nms.launches
+    out = fast_kernels.fast_score_nms(img)
+    torch.cuda.synchronize()
+    if fast_kernels.fast_score_nms.launches != n0 + 1:
+        raise RuntimeError("fast_score_nms did not launch its kernel")
+    ref = fast_kernels.fast_score_nms_plain(img)
+    h, w = img.shape
+    r = dict(shape=[h, w], max_abs_err=float((out - ref).abs().max()),
+             n_diff=int((out != ref).sum()), n_kept=int((ref > 0).sum()))
+    r["ok"] = r["n_diff"] == 0 and out.dtype == torch.float32
+    r.update(bound(h * w * 8, h * w * K4_OPS_PER_PIXEL, LANE_OPS_S))
+    if timing:
+        r["ms"] = time_cuda(lambda: fast_kernels.fast_score_nms(img))
+        r["plain_ms"] = time_cuda(lambda: fast_kernels.fast_score_nms_plain(img), reps=5)
     return r

@@ -8,8 +8,8 @@ no download:
     and the ceiling of a box room of about the V1 room's size, plus some
     full-rank clutter blobs near the walls. It is written with the
     reference's varint-framed protobuf stream
-    (`gmmloc_tpu.utils.proto.save_gmm_file`), so both packages load it
-    through the same parser.
+    (`utils/proto.save_gmm_file`), so the port and the JAX package load it
+    with their own copies of one parser.
   - the trajectory: 20 Hz, about 0.4 m/s along a wobbling ellipse around
     the room centre, the camera yawing to look at the walls, written in
     the `gt_sync` text format (`t x y z qx qy qz qw`, T_w_c) that
@@ -27,7 +27,7 @@ import os
 
 import numpy as np
 
-from gmmloc_tpu.utils import proto
+from ..utils import proto
 
 # V1-room-sized box (metres, z up): the walls bound the Vicon volume
 ROOM_X = (-4.0, 4.0)

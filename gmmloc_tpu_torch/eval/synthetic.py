@@ -4,11 +4,9 @@ Port of `gmmloc_tpu/eval/synthetic.py` (the feature-level tier): per-frame
 feature arrays rendered along a ground-truth trajectory against landmarks
 sampled from a prior GMM map -- projected landmarks with temporally
 correlated noise, descriptor bit flips, dropout and spurious detections.
-The code is the reference harness's, numpy only; the JAX module cannot be
-imported without JAX (its camera import pulls it in), so the port carries
-this copy, held frame-for-frame equal to the original by
-tests/test_torch_system.py. The `Frame` container and the map parser are
-shared.
+The code is the reference harness's, numpy only; the port carries this
+copy (and its own `Frame` container and map parser), held frame-for-frame
+equal to the original by tests/test_torch_system.py.
 """
 
 from __future__ import annotations
@@ -18,11 +16,11 @@ from typing import Optional
 
 import numpy as np
 
-from gmmloc_tpu.config import SystemConfig
-from gmmloc_tpu.mapping.map_state import _quat_to_mat
-from gmmloc_tpu.tracking.frame import Frame, make_frame
-
+from ..config import SystemConfig
 from ..geometry import camera as cam_mod
+from ..mapping.map_state import _quat_to_mat
+from ..tracking.frame import Frame, make_frame
+from ..utils import proto
 
 
 def load_gt_trajectory(path: str):
@@ -234,8 +232,6 @@ def make_sequence(
     **frontend_kw,
 ):
     """Build (frontend, timestamps, q_wc, t_wc) for a synthetic run."""
-    from gmmloc_tpu.utils import proto
-
     means, covs, _, _ = proto.load_gmm_file(gmm_path)
     world = sample_world_from_gmm(means, covs, n_landmarks=n_landmarks, seed=seed)
     ts, q_wc, t_wc = load_gt_trajectory(gt_path)

@@ -13,7 +13,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from gmmloc_tpu.utils import proto
+from ..utils import proto
+from ..utils.device import resolve
 
 FIELDS = ("means", "covs", "cov_inv", "det", "scale", "axis", "normal",
           "sqrt_info", "is_degenerated", "is_salient", "valid", "neighbors")
@@ -115,13 +116,14 @@ def _to_device(arrs: dict, host: dict, device) -> GMMMap:
     return GMMMap(**t, host=host)
 
 
-def from_arrays(means, covs, device, pad_to: int | None = None,
+def from_arrays(means, covs, device="cuda", pad_to: int | None = None,
                 neighbor_dist_thresh: float = 2.5, neighbor_cap: int = 16,
                 degenerate_eig_thresh: float = 1e-4,
                 salient_eig_thresh: float = 0.2) -> GMMMap:
     """GMMMap from raw (K,3)/(K,3,3) arrays: float64 eigendecomposition,
     inverse, determinant and Cholesky on the host, padded to `pad_to`
     (identity covariances in the padding), then float32 on `device`."""
+    device = resolve(device)
     means = np.asarray(means, dtype=np.float64)
     covs = np.asarray(covs, dtype=np.float64)
     K = means.shape[0]
@@ -168,7 +170,7 @@ def host_view(gmap: GMMMap) -> dict:
     return gmap.host
 
 
-def load(path: str, device, pad_to: int | None = None, **kw) -> GMMMap:
+def load(path: str, device="cuda", pad_to: int | None = None, **kw) -> GMMMap:
     """Load a `.gmm` protobuf stream (ref loadGMMModel, gmm_utils.cpp:9-67)
     through the shared parser."""
     means, covs, _, _ = proto.load_gmm_file(path)

@@ -14,8 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.utils.timing import Timer
+from . import map_state as ms
+from ..utils.timing import Timer
 
 from ..config import SystemConfig
 from ..geometry import camera as cam_mod

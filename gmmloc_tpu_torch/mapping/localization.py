@@ -20,8 +20,8 @@ from typing import List
 import numpy as np
 import torch
 
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.utils.timing import Timer
+from . import map_state as ms
+from ..utils.timing import Timer
 
 from ..config import SystemConfig
 from ..features import matching

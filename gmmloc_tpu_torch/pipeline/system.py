@@ -20,9 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from gmmloc_tpu.mapping import map_state as ms
-from gmmloc_tpu.tracking.frame import Frame
-from gmmloc_tpu.utils.timing import Timer
+from ..mapping import map_state as ms
+from ..tracking.frame import Frame
+from ..utils.device import resolve
+from ..utils.timing import Timer
 
 from ..config import SystemConfig
 from ..geometry import camera as cam_mod
@@ -41,14 +42,14 @@ def set_numerics() -> None:
 
 
 class GMMLocSystem:
-    def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device):
+    def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device="cuda"):
         if cfg.online:
             raise ValueError("online (threaded) mapping is not ported; set online=False")
         if not cfg.loc.fused_kf_assoc:
             raise ValueError("only the fused keyframe association is ported")
         set_numerics()
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve(device)
         self.cam = cam_mod.CameraParams.from_config(cfg.camera)
         self.gmap = gmap
         self.world = ms.MapState(cfg)
@@ -68,7 +69,7 @@ class GMMLocSystem:
         self.track_failed = False
 
     @classmethod
-    def from_gmm_file(cls, cfg: SystemConfig, path: str, device) -> "GMMLocSystem":
+    def from_gmm_file(cls, cfg: SystemConfig, path: str, device="cuda") -> "GMMLocSystem":
         gmap = mixture.load(
             path, device, pad_to=cfg.caps.gmm_components_pad,
             neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,

@@ -107,7 +107,8 @@ def optimize_pose(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid,
     optimize_pose.launches += 1
     return pose_solver.PoseOptResult(
         q=pose[:4], t=pose[4:7], is_outlier=outlier,
-        num_inliers=pose[7].to(torch.int32), chi2=chi2)
+        num_inliers=pose[7].to(torch.int32), chi2=chi2,
+        gn_iters=pose[9].to(torch.int32))
 
 
 optimize_pose.launches = 0
@@ -134,7 +135,8 @@ def optimize_pose_anchored(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv,
     return pose_solver.PoseAnchorResult(
         q=pose[:4], t=pose[4:7], is_outlier=outlier,
         num_inliers=pose[7].to(torch.int32), chi2=chi2,
-        anc_outlier=anc_out, num_anchors=pose[8].to(torch.int32))
+        anc_outlier=anc_out, num_anchors=pose[8].to(torch.int32),
+        gn_iters=pose[9].to(torch.int32))
 
 
 optimize_pose_anchored.launches = 0

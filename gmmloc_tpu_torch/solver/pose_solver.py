@@ -16,7 +16,7 @@ while-loop form.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -37,6 +37,7 @@ class PoseOptResult(NamedTuple):
     is_outlier: torch.Tensor  # (N,) bool
     num_inliers: torch.Tensor  # () int32
     chi2: torch.Tensor        # (N,) final per-edge chi2
+    gn_iters: Optional[torch.Tensor] = None  # () GN steps run (kernel only)
 
 
 class PoseAnchorResult(NamedTuple):
@@ -47,6 +48,7 @@ class PoseAnchorResult(NamedTuple):
     chi2: torch.Tensor
     anc_outlier: torch.Tensor  # (N,) anchor-edge outliers
     num_anchors: torch.Tensor  # () int32 surviving anchors
+    gn_iters: Optional[torch.Tensor] = None  # () GN steps run (kernel only)
 
 
 def _chol_solve6(H, b):

@@ -21,9 +21,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from gmmloc_tpu.mapping.map_state import MapState, _inverse, _quat_to_mat
-from gmmloc_tpu.tracking.frame import Frame
-from gmmloc_tpu.utils.timing import Timer
+from ..mapping.map_state import MapState, _inverse, _quat_to_mat
+from .frame import Frame
+from ..utils.timing import Timer
 
 from ..config import SystemConfig
 from ..features import matching

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (`gmmloc_tpu_torch/csrc/*.cu`).
 
-The sources compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes:
+Each source compiles with its own nvcc process, all started together,
+and the objects link into one shared library with a plain C interface,
+loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/gmmloc_tpu_torch/libgmmloc_kernels_<hash>.so
-         gmmloc_tpu_torch/csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -c gmmloc_tpu_torch/csrc/<name>.cu -o <name>.o
+    nvcc -shared -o build/gmmloc_tpu_torch/libgmmloc_kernels_<hash>.so *.o
 
 The build runs at first use, takes seconds, and is cached by a hash of the
 sources and flags, so an edited source rebuilds. Nothing here runs at
@@ -29,7 +30,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "gmmloc_tpu_torch")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -41,6 +42,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     "gmmloc_hamming": [_P, _P, _I, _I, _P, _P],
+    "gmmloc_fast_nms": [_P, _I, _I, _P, _P],
     "gmmloc_pose_solve": (
         [_P] * 12 + [_F, _I, _I, _I, _I, _F] + [_F] * 5 + [_P] * 5
     ),
@@ -75,14 +77,31 @@ def build() -> str:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources()]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    fails = []
+    for src, p in zip(sources(), procs):
+        log = p.communicate()[0]
+        if p.returncode != 0:
+            fails.append(f"{os.path.basename(src)} ({p.returncode}):\n{log}")
+    if not fails:
+        res = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            fails.append(f"link ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
     build_seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
+    if fails:
+        raise RuntimeError("nvcc failed: " + "\n".join(fails))
     os.replace(tmp, out)
     return out
 

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from gmmloc_tpu import config as jax_config_mod
 from gmmloc_tpu.eval import synthetic as jax_synthetic
 from gmmloc_tpu.gmm import mixture as jax_mixture
 from gmmloc_tpu.mapping.map_state import _inverse
@@ -40,6 +41,19 @@ N_FRAMES = 30
 
 def slice_config():
     return slice_run.slice_config(feat_cap=256, num_features=240, local_map_cap=1024)
+
+
+def jax_config(cfg):
+    """The JAX package's `SystemConfig` with the field values of the
+    port's `cfg`: the two packages keep their own (equal) config classes,
+    so a parity test builds both from the same overrides."""
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(jax_config_mod, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return jax_config_mod.SystemConfig(**kw)
 
 
 @pytest.fixture(scope="module")
@@ -60,16 +74,20 @@ def _frames(mod, cfg, paths, n):
 def test_port_synthetic_frames_equal_reference(fixture_paths):
     cfg = slice_config()
     a, _, _ = _frames(synthetic, cfg, fixture_paths, 5)
-    b, _, _ = _frames(jax_synthetic, cfg, fixture_paths, 5)
+    b, _, _ = _frames(jax_synthetic, jax_config(cfg), fixture_paths, 5)
+    assert type(a[0]) is not type(b[0])       # each package its own Frame
     for fa, fb in zip(a, b):
         for k in ("uv", "ur", "depth", "octave", "angle", "desc", "valid"):
             np.testing.assert_array_equal(getattr(fa, k), getattr(fb, k), err_msg=k)
 
 
 def test_room_fixture_shape(fixture_paths):
-    from gmmloc_tpu.utils import proto
+    from gmmloc_tpu.utils import proto as jax_proto
+    from gmmloc_tpu_torch.utils import proto
 
     means, covs, deg, _ = proto.load_gmm_file(fixture_paths[0])
+    for a, b in zip(jax_proto.load_gmm_file(fixture_paths[0]), (means, covs, deg)):
+        np.testing.assert_array_equal(a, b)    # both parsers read the fixture
     assert means.shape == (400, 3) and covs.shape == (400, 3, 3)
     assert 0.8 < deg.mean() < 0.95            # mostly planar tiles
     ts, q, t = synthetic.load_gt_trajectory(fixture_paths[1])
@@ -112,8 +130,9 @@ def test_slice_end_to_end_matches_reference(fixture_paths, monkeypatch):
     kw = dict(pad_to=512, neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
               neighbor_cap=cfg.gmm.neighbor_cap)
 
-    frames, q_wc, t_wc = _frames(jax_synthetic, cfg, fixture_paths, N_FRAMES)
-    ref = _run(JaxSystem(cfg, jax_mixture.load(gmm_path, **kw)), frames, q_wc, t_wc)
+    jcfg = jax_config(cfg)
+    frames, q_wc, t_wc = _frames(jax_synthetic, jcfg, fixture_paths, N_FRAMES)
+    ref = _run(JaxSystem(jcfg, jax_mixture.load(gmm_path, **kw)), frames, q_wc, t_wc)
     frames, q_wc, t_wc = _frames(synthetic, cfg, fixture_paths, N_FRAMES)
     out = _run(GMMLocSystem(cfg, mixture.load(gmm_path, "cpu", **kw), "cpu"),
                frames, q_wc, t_wc)
@@ -133,11 +152,21 @@ def test_slice_end_to_end_matches_reference(fixture_paths, monkeypatch):
 
 
 def test_port_imports_without_jax():
+    """Every module of the port imports with JAX and the JAX package made
+    unimportable, and none of them loads either."""
     code = (
-        "import sys; sys.modules['jax'] = None\n"
-        "import gmmloc_tpu_torch.pipeline.system, gmmloc_tpu_torch.eval.kernel_check\n"
-        "import gmmloc_tpu_torch.eval.synthetic, gmmloc_tpu_torch.eval.room_fixture\n"
+        "import sys; sys.modules['jax'] = None; sys.modules['gmmloc_tpu'] = None\n"
+        "import importlib, pkgutil, gmmloc_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(gmmloc_tpu_torch.__path__,\n"
+        "                                              'gmmloc_tpu_torch.')]\n"
+        "for m in mods:\n"
+        "    importlib.import_module(m)\n"
+        "for m in ('gmmloc_tpu_torch.pipeline.frontend', 'gmmloc_tpu_torch.features.detect',\n"
+        "          'gmmloc_tpu_torch.features.fast_kernels', 'gmmloc_tpu_torch.pipeline.rectify',\n"
+        "          'gmmloc_tpu_torch.eval.image_synthetic', 'gmmloc_tpu_torch.eval.slice_run'):\n"
+        "    assert m in mods, m\n"
         "assert 'jax.numpy' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.startswith('gmmloc_tpu.')]\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -146,16 +175,41 @@ def test_port_imports_without_jax():
 
 
 def test_no_jax_import_in_port_sources():
+    """No source of the port, nor chip_smoke.py, imports JAX or the JAX
+    package (`gmmloc_tpu`, not `gmmloc_tpu_torch`)."""
+    import re
+
+    bad = re.compile(r"^\s*(import|from)\s+(jax|gmmloc_tpu)(\s|\.|$)", re.M)
     pkg = os.path.join(ROOT, "gmmloc_tpu_torch")
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(pkg):
+        files += [os.path.join(dirpath, fn) for fn in names if fn.endswith(".py")]
     offenders = []
-    for dirpath, _, files in os.walk(pkg):
-        for fn in files:
-            if fn.endswith(".py"):
-                with open(os.path.join(dirpath, fn)) as f:
-                    src = f.read()
-                if "import jax" in src or "from jax" in src:
-                    offenders.append(fn)
+    for path in files:
+        with open(path) as f:
+            src = f.read()
+        if "import jax" in src or "from jax" in src or bad.search(src):
+            offenders.append(os.path.relpath(path, ROOT))
     assert not offenders, offenders
+    assert bad.search("from gmmloc_tpu.config import x") and bad.search("import gmmloc_tpu\n")
+    assert not bad.search("from gmmloc_tpu_torch.config import x")
+
+
+def test_entry_points_default_to_cuda():
+    """Without device="cpu" the entry points ask for the card, and with no
+    card they raise instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
+
+    cfg = slice_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01)
+    gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GMMLocSystem(cfg, gmap)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ImageFrontend(slice_run.image_config())
 
 
 def test_system_rejects_unported_options():

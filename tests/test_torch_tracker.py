@@ -23,7 +23,7 @@ from gmmloc_tpu_torch.gmm import mixture
 from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
 
 from test_torch_system import (_frames, _reference_ba_in_f32, _run, fixture_paths,  # noqa: F401
-                               slice_config)
+                               jax_config, slice_config)
 
 torch.set_num_threads(1)
 
@@ -35,8 +35,9 @@ def test_classic_tracking_matches_reference(fixture_paths, monkeypatch):  # noqa
     kw = dict(pad_to=512, neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
               neighbor_cap=cfg.gmm.neighbor_cap)
     n = 26
-    frames, q_wc, t_wc = _frames(jax_synthetic, cfg, fixture_paths, n)
-    jsys = JaxSystem(cfg, jax_mixture.load(fixture_paths[0], **kw))
+    jcfg = jax_config(cfg)
+    frames, q_wc, t_wc = _frames(jax_synthetic, jcfg, fixture_paths, n)
+    jsys = JaxSystem(jcfg, jax_mixture.load(fixture_paths[0], **kw))
     ref = _run(jsys, frames, q_wc, t_wc)
     frames, q_wc, t_wc = _frames(synthetic, cfg, fixture_paths, n)
     tsys = GMMLocSystem(cfg, mixture.load(fixture_paths[0], "cpu", **kw), "cpu")
