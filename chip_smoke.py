@@ -14,7 +14,10 @@ Phases, each of which raises on failure (exit code non-zero):
   4. kernels against their plain PyTorch versions on the card, at the
      main paths' shapes, with CUDA-event times, bounds and, where one
      PyTorch call computes the same function, its time: K1/K2 (staged
-     pose solves, F=1280) within the pose gates; K3 (Hamming matrix,
+     pose solves, F=1280 and F=300, seeds 0 and 3) within the pose gates,
+     bit-identical over three launches, and their step sweep (device ms
+     over GN steps and over features: the per-step latency and the
+     per-feature cost); K3 (Hamming matrix,
      1280x1280, 4096x1280 and the stereo 1200x1200) exact; K4 (FAST +
      NMS) exact on a (480,752) and a (96,130) random-integer image and on
      the stacked stereo atlas of the first rendered pair (4420x752);
@@ -37,8 +40,10 @@ Phases, each of which raises on failure (exit code non-zero):
 
 Launch counts are set to 0 just before each path and read just after
 it; launches made to compare a kernel with its plain version do not
-count. The line before the last is the kernel table as JSON; the last
-line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
+count. Kernel times are device time: the launches are queued behind a
+spin kernel so the host's enqueue is off the clock
+(`kernel_check.time_cuda(queued=True)`). The line before the last is the
+kernel table as JSON; the last line is `{"ok": true, "device": {...}}`. Without a CUDA device, or
 outside the repository, it exits non-zero and prints no result.
 """
 
@@ -127,15 +132,21 @@ def check_kernels(device, card, atlas):
     res = {}
     for key, anchored in (("K1", False), ("K2", True)):
         ms = []
-        for seed in (0, 3):
-            m = kernel_check.check_pose_kernel(cam, 1280, anchored, device, seed=seed,
-                                               timing=seed == 0)
-            log(f"[kernel] {key} seed={seed} F=1280 {json.dumps(m)} on {card}")
+        for n, seed in ((1280, 0), (1280, 3), (300, 0), (300, 3)):
+            m = kernel_check.check_pose_kernel(cam, n, anchored, device, seed=seed,
+                                               timing=(n, seed) == (1280, 0))
+            log(f"[kernel] {key} seed={seed} F={n} {json.dumps(m)} on {card}")
             if not m["ok"]:
                 raise RuntimeError(f"{key} disagrees with its plain version: {m}")
             ms.append(m)
+        if not kernel_check.check_pose_repeatable(cam, 1280, anchored, device):
+            raise RuntimeError(f"{key} is not bit-identical across launches")
+        sweep = kernel_check.step_sweep(cam, anchored, device)
+        log(f"[kernel] {key} step sweep {json.dumps(sweep)} on {card}")
         res[key] = dict(max_abs_err=max(m["max_abs_err"] for m in ms),
                         library_ms=None, shape="F=1280", gn_iters=ms[0]["gn_iters"],
+                        step_us=sweep["step_us"],
+                        feature_ns_per_step=sweep["feature_ns_per_step"],
                         **{k: ms[0][k] for k in keep})
     hs = {}
     for n, m in ((1280, 1280), (4096, 1280), (1200, 1200)):
@@ -178,6 +189,12 @@ def _summary(step_s, n_anchors, warmup, measured):
         anchored_frames=int((n_anchors > 0).sum()),
         anchors_mean=float(n_anchors.mean()), anchors_min=int(n_anchors.min()),
     )
+
+
+def _ba_iters_mean(system) -> float:
+    """LM iterations per local-BA solve over the run."""
+    its = [s["n_iters"] for s in system.localizer.ba_stats]
+    return float(sum(its) / len(its)) if its else 0.0
 
 
 def _check_path(name, out, errs, gate, n_anchors, needed):
@@ -226,7 +243,7 @@ def run_feature_path(device, card):
                max_err_m=float(errs.max()), mean_err_m=float(errs.mean()),
                keyframes=system.world.n_keyframes(), points=system.world.n_points(),
                ba_solves=len(system.localizer.ba_stats),
-               ba_iters_last=system.localizer.last_ba_iters, launches=launches,
+               ba_iters_mean=_ba_iters_mean(system), launches=launches,
                **_summary(ran["step_s"], n_anchors, WARMUP, MEASURED))
     log(f"[main] {json.dumps(out)} on {card}")
     if not (np.isfinite(q_est).all() and np.isfinite(t_est).all()
@@ -277,7 +294,7 @@ def run_image_path(device, card, cfg, gmap, images, ts, q_wc, t_wc):
                max_err_m=float(errs.max()), mean_err_m=float(errs.mean()),
                err_gate_m=image_gate(), keyframes=system.world.n_keyframes(),
                points=system.world.n_points(), ba_solves=len(system.localizer.ba_stats),
-               launches=launches,
+               ba_iters_mean=_ba_iters_mean(system), launches=launches,
                **_summary(ran["step_s"], n_anchors, IMG_WARMUP, IMG_MEASURED))
     log(f"[image] {json.dumps(out)} on {card}")
     if len(frames) != n_frames or system.n_tracked != n_frames - 1:
@@ -363,7 +380,8 @@ def main() -> int:
                                   image=img_out["launches"][key]),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
-            library_ms=k["library_ms"], shape=k["shape"]))
+            library_ms=k["library_ms"], shape=k["shape"],
+            **{x: k[x] for x in ("step_us", "feature_ns_per_step") if x in k}))
     log(card)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

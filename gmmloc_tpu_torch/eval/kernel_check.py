@@ -154,20 +154,72 @@ def within(m: dict, gates: dict) -> bool:
                for k, v in gates.items())
 
 
-def time_cuda(fn, reps: int = 20, warmup: int = 3) -> float:
+def time_cuda(fn, reps: int = 20, warmup: int = 3, queued: bool = False) -> float:
     """Mean milliseconds per call of fn() on the current stream, by CUDA
-    events around `reps` back-to-back calls."""
+    events around `reps` back-to-back calls.
+
+    With `queued` the calls are enqueued behind a spin kernel that keeps
+    the card busy until the host has enqueued them all, so the events hold
+    device time only and not the host's pace; the spin is lengthened until
+    the first event is still pending when the last call has been enqueued.
+    A kernel's time is taken so; a plain version's is taken as the host
+    paces it."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(reps):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / reps
+    spin = 1 << 20
+    while True:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(spin)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        paced = queued and e0.query()   # the card reached e0 before the host was done
+        torch.cuda.synchronize()
+        if not paced:
+            return e0.elapsed_time(e1) / reps
+        spin *= 4
+
+
+# the step sweep: one round without early stop (step_tol 0), at F=1280
+# over the GN steps, and at 10 steps over the feature count
+SWEEP_ITERS = (1, 2, 5, 10)
+SWEEP_FEATURES = (128, 320, 640, 1280)
+
+
+def step_sweep(cam, anchored: bool, device, solve=None, seed: int = 0) -> dict:
+    """Device ms of one solve (rounds=1, step_tol=0) at F=1280 for each
+    iters in SWEEP_ITERS and at iters=10 for each F in SWEEP_FEATURES. The
+    slope over steps is the serial latency of one GN step (the feature pass
+    at F=1280, the reduction, the barrier and the 6x6 solve); the slope
+    over features, per step, is the per-feature cost of the pass. `solve`
+    defaults to the package's K1 (K2 with `anchored`)."""
+    if solve is None:
+        solve = cuda_pose.optimize_pose_anchored if anchored else cuda_pose.optimize_pose
+
+    def ms(n, iters):
+        args = pose_args(pose_problem(cam, n, seed=seed, anchored=anchored), device,
+                         anchored)
+        out = solve(cam, *args, rounds=1, iters=iters, step_tol=0.0)
+        torch.cuda.synchronize()
+        if out.gn_iters is not None and int(out.gn_iters) != iters:
+            raise RuntimeError(f"{iters} GN steps asked, {int(out.gn_iters)} run")
+        return time_cuda(lambda: solve(cam, *args, rounds=1, iters=iters, step_tol=0.0),
+                         reps=50, queued=True)
+
+    by_iters = {it: ms(1280, it) for it in SWEEP_ITERS}
+    by_feat = {n: ms(n, 10) for n in SWEEP_FEATURES}
+    i0, i1 = SWEEP_ITERS[0], SWEEP_ITERS[-1]
+    f0, f1 = SWEEP_FEATURES[0], SWEEP_FEATURES[-1]
+    return dict(
+        ms_by_iters={str(k): v for k, v in by_iters.items()},
+        ms_by_features={str(k): v for k, v in by_feat.items()},
+        step_us=(by_iters[i1] - by_iters[i0]) / (i1 - i0) * 1e3,
+        feature_ns_per_step=(by_feat[f1] - by_feat[f0]) / (f1 - f0) / i1 * 1e6,
+    )
 
 
 def check_pose_kernel(cam, n: int, anchored: bool, device, seed: int = 0,
@@ -195,13 +247,24 @@ def check_pose_kernel(cam, n: int, anchored: bool, device, seed: int = 0,
     # each input and output once
     m["gn_iters"] = int(out.gn_iters)
     n_in = sum(a.numel() * a.element_size() for a in args if isinstance(a, torch.Tensor))
-    n_out = 16 * 4 + n * (4 + 1 + (1 if anchored else 0))
+    n_out = 8 * 4 + 3 * 4 + n * (4 + 1 + (1 if anchored else 0))
     flops = K2_FLOPS_PER_FEATURE_ITER if anchored else K1_FLOPS_PER_FEATURE_ITER
     m.update(bound(n_in + n_out, m["gn_iters"] * n * flops, FP32_FLOP_S))
     if timing:
-        m["ms"] = time_cuda(lambda: kern(cam, *args))
+        m["ms"] = time_cuda(lambda: kern(cam, *args), queued=True)
         m["plain_ms"] = time_cuda(lambda: plain(cam, *args), reps=5, warmup=1)
     return m
+
+
+def check_pose_repeatable(cam, n: int, anchored: bool, device, seed: int = 0,
+                          runs: int = 3) -> bool:
+    """`runs` launches on the same inputs give bit-identical outputs."""
+    kern = cuda_pose.optimize_pose_anchored if anchored else cuda_pose.optimize_pose
+    args = pose_args(pose_problem(cam, n, seed=seed, anchored=anchored), device, anchored)
+    outs = [kern(cam, *args) for _ in range(runs)]
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o)
+               if isinstance(a, torch.Tensor))
 
 
 def check_hamming_kernel(n: int, m: int, device, seed: int = 0,
@@ -221,7 +284,7 @@ def check_hamming_kernel(n: int, m: int, device, seed: int = 0,
     r["ok"] = r["max_abs_err"] == 0 and out.dtype == torch.int32
     r.update(bound((n + m) * 32 + n * m * 4, n * m * K3_OPS_PER_PAIR, LANE_OPS_S))
     if timing:
-        r["ms"] = time_cuda(lambda: cuda_kernels.hamming_matrix(a, b))
+        r["ms"] = time_cuda(lambda: cuda_kernels.hamming_matrix(a, b), queued=True)
         r["plain_ms"] = time_cuda(lambda: cuda_kernels.hamming_matrix_plain(a, b))
         # the library yardstick: one cdist call on the descriptors
         # unpacked to 0/1 floats (the unpacking stays outside the clock)
@@ -229,7 +292,7 @@ def check_hamming_kernel(n: int, m: int, device, seed: int = 0,
             .reshape(d.shape[0], 256).to(torch.float32)
         ba, bb = bits(a), bits(b)
         r["library_equal"] = bool(torch.equal(torch.cdist(ba, bb, p=0).to(torch.int32), ref))
-        r["library_ms"] = time_cuda(lambda: torch.cdist(ba, bb, p=0))
+        r["library_ms"] = time_cuda(lambda: torch.cdist(ba, bb, p=0), queued=True)
     return r
 
 
@@ -254,6 +317,6 @@ def check_fast_kernel(img, timing: bool = True) -> dict:
     r["ok"] = r["n_diff"] == 0 and out.dtype == torch.float32
     r.update(bound(h * w * 8, h * w * K4_OPS_PER_PIXEL, LANE_OPS_S))
     if timing:
-        r["ms"] = time_cuda(lambda: fast_kernels.fast_score_nms(img))
+        r["ms"] = time_cuda(lambda: fast_kernels.fast_score_nms(img), queued=True)
         r["plain_ms"] = time_cuda(lambda: fast_kernels.fast_score_nms_plain(img), reps=5)
     return r

@@ -48,7 +48,6 @@ class Localization:
         self.curr_kf: int = -1
         self.is_idle = True
         self.abort_ba = False
-        self.last_ba_iters = 0
         self._K = np.array([[cam.fx, 0, cam.cx], [0, cam.fy, cam.cy], [0, 0, 1.0]])
 
     def _t(self, a, dtype=torch.float32):
@@ -674,7 +673,7 @@ class Localization:
         new_q, new_t, new_pts, drop_all, bad_all = (
             x.cpu().numpy() for x in (res.cam_q, res.cam_t, res.pts, res.str_drop,
                                       res.obs_bad))
-        self.last_ba_iters = res.n_iters
+        self.ba_stats[-1]["n_iters"] = res.n_iters
         self._ba_writeback(local, pts_np, n_act, new_q, new_t, new_pts, drop_all,
                            bad_all, obs_kfid)
 

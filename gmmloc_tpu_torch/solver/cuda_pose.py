@@ -8,7 +8,10 @@ Same signatures and results as the plain versions in `pose_solver.py`:
   - tensors on a CUDA device launch the kernel, or raise: there is no
     fallback from the card.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`.
+Each wrapper counts its kernel launches in `<wrapper>.launches`. A solve
+on the card is that one launch and one allocation: q0 and t0 go to the
+kernel as they are (float32, contiguous), and the kernel writes the pose,
+the int32 counts, chi2 and the flags into views of one buffer.
 """
 
 from __future__ import annotations
@@ -38,26 +41,39 @@ def _device_of(x_w):
     return x_w.device
 
 
+def _outputs(n: int, dev):
+    """One allocation for every output of a solve, cut into views: pose
+    (8,) f32 [q, t, 0], counts (4,) int32 [inliers, anchors, GN steps, 0],
+    chi2 (n,) f32, outlier and anchor-outlier flags (n,) bool."""
+    buf = torch.empty(48 + 6 * n, dtype=torch.uint8, device=dev)
+    return (buf[:32].view(torch.float32), buf[32:48].view(torch.int32),
+            buf[48:48 + 4 * n].view(torch.float32),
+            buf[48 + 4 * n:48 + 5 * n].view(torch.bool),
+            buf[48 + 5 * n:].view(torch.bool))
+
+
 def _launch(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, anc,
-            rounds, iters, step_tol):
+            rounds, iters, step_tol, lib=None):
+    """One kernel launch on the current stream, no other device work.
+    `lib` is the kernel library (default: the package's own build)."""
     dev = x_w.device
     n = x_w.shape[0]
     tensors = dict(zip(_POSE_ARGS, (x_w, obs_uvr, is_stereo, sigma2_inv, valid)))
     for name, x in [("q0", q0), ("t0", t0)] + list(tensors.items()):
         if x.device != dev:
             raise ValueError(f"{name} is on {x.device}, x_w on {dev}")
+    _check("q0", q0, 4, torch.float32)
+    _check("t0", t0, 3, torch.float32)
     _check("x_w", x_w, n, torch.float32, (3,))
     _check("obs_uvr", obs_uvr, n, torch.float32, (3,))
     _check("is_stereo", is_stereo, n, torch.bool)
     _check("sigma2_inv", sigma2_inv, n, torch.float32)
     _check("valid", valid, n, torch.bool)
-    if q0.shape != (4,) or t0.shape != (3,):
-        raise ValueError("q0 must be (4,) and t0 (3,)")
-    pose0 = torch.cat([q0, t0]).to(torch.float32).contiguous()
-    pose = torch.empty(16, dtype=torch.float32, device=dev)
-    chi2 = torch.empty(n, dtype=torch.float32, device=dev)
-    outlier = torch.empty(n, dtype=torch.bool, device=dev)
-    anc_out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = lib or cuda_build.load()
+    if n > lib.gmmloc_pose_max_features():
+        raise ValueError(f"{n} features: one solve takes at most "
+                         f"{lib.gmmloc_pose_max_features()}")
+    pose, counts, chi2, outlier, anc_out = _outputs(n, dev)
     if anc is None:
         null = x_w   # never read by the K1 instantiation
         aptrs = [null.data_ptr()] * 6
@@ -78,19 +94,18 @@ def _launch(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, anc,
         aptrs = [x.data_ptr() for x in (anc_xc, anc_mean, anc_normal, anc_sqi,
                                          anc_type, anc_w)]
         gate = float(gate)
-    lib = cuda_build.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gmmloc_pose_solve(
-            pose0.data_ptr(), x_w.data_ptr(), obs_uvr.data_ptr(),
+            q0.data_ptr(), t0.data_ptr(), x_w.data_ptr(), obs_uvr.data_ptr(),
             is_stereo.data_ptr(), sigma2_inv.data_ptr(), valid.data_ptr(),
             *aptrs, gate, n, int(anc is not None), rounds, iters, step_tol,
             cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-            pose.data_ptr(), chi2.data_ptr(), outlier.data_ptr(),
-            anc_out.data_ptr(), stream,
+            pose.data_ptr(), counts.data_ptr(), chi2.data_ptr(),
+            outlier.data_ptr(), anc_out.data_ptr(), stream,
         )
     cuda_build.check(err, "gmmloc_pose_solve")
-    return pose, chi2, outlier, anc_out
+    return pose, counts, chi2, outlier, anc_out
 
 
 def optimize_pose(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid,
@@ -101,14 +116,13 @@ def optimize_pose(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid,
         return pose_solver.optimize_pose(
             cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid,
             rounds=rounds, iters=iters, step_tol=step_tol)
-    pose, chi2, outlier, _ = _launch(
+    pose, counts, chi2, outlier, _ = _launch(
         cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, None,
         rounds, iters, step_tol)
     optimize_pose.launches += 1
     return pose_solver.PoseOptResult(
-        q=pose[:4], t=pose[4:7], is_outlier=outlier,
-        num_inliers=pose[7].to(torch.int32), chi2=chi2,
-        gn_iters=pose[9].to(torch.int32))
+        q=pose[:4], t=pose[4:7], is_outlier=outlier, num_inliers=counts[0],
+        chi2=chi2, gn_iters=counts[2])
 
 
 optimize_pose.launches = 0
@@ -128,15 +142,14 @@ def optimize_pose_anchored(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv,
             anc_chi2_th, rounds=rounds, iters=iters, step_tol=step_tol)
     anc = (anc_xc, anc_mean, anc_normal, anc_sqrt_info, anc_type, anc_weight,
            anc_chi2_th)
-    pose, chi2, outlier, anc_out = _launch(
+    pose, counts, chi2, outlier, anc_out = _launch(
         cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, anc,
         rounds, iters, step_tol)
     optimize_pose_anchored.launches += 1
     return pose_solver.PoseAnchorResult(
-        q=pose[:4], t=pose[4:7], is_outlier=outlier,
-        num_inliers=pose[7].to(torch.int32), chi2=chi2,
-        anc_outlier=anc_out, num_anchors=pose[8].to(torch.int32),
-        gn_iters=pose[9].to(torch.int32))
+        q=pose[:4], t=pose[4:7], is_outlier=outlier, num_inliers=counts[0],
+        chi2=chi2, anc_outlier=anc_out, num_anchors=counts[1],
+        gn_iters=counts[2])
 
 
 optimize_pose_anchored.launches = 0

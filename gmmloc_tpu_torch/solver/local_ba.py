@@ -17,10 +17,21 @@ One Schur path: points are eliminated per point (dense 3x3), the camera
 blocks are block-diagonal sums over observations (one-hot contractions,
 no scatters), the reduced (6L x 6L) system is solved by LU. The JAX
 package's "flatpm", "flat" and "blockdiag" are TPU layouts of this same
-math and select this path; the JAX bf16 staging of the Hessian products
-is not ported: all math is float32. The residual/Jacobian products at the
+math and select this path. The residual/Jacobian products at the
 accepted state are carried, so one LM iteration makes one pass at the
 proposed state, whose chi2 is also the accept-test cost.
+
+With `use_bf16` (the default, as in the JAX package) the Hessian products
+are staged in bfloat16 where the JAX "flatpm" path holds bfloat16 values:
+the carried residuals and Jacobians, sqrt(w), the weighted rows, and the
+sums over the three residual rows that feed H_pp, b_p and U, each term
+and partial sum rounded. XLA runs the last bfloat16 operation before a
+float32 consumer in float32, so the port does too: the last add of the
+H_pp and b_p row sums, and the weighted residual that b_c reads. Each
+rounding goes through `torch.bfloat16` and back; every reduction over
+observations and everything after it is float32 (a product of two
+bfloat16 values is exact in float32). chi2 and the LM accept cost are
+exact float32.
 """
 
 from __future__ import annotations
@@ -137,6 +148,20 @@ def _gmm_terms(prob: BAProblem, pts, ba_lambda2, active_str):
     return H, b, cost
 
 
+def _bf16_round(x):
+    """x rounded to bfloat16 and held in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _row_sum(x, rnd, round_last: bool = True):
+    """Sum over the residual-row axis (dim 2, size 3) in the staging
+    type: ((x0 + x1) + x2), each term and partial sum passed through rnd;
+    the last add stays float32 without `round_last`."""
+    x = rnd(x)
+    s = rnd(x[:, :, 0] + x[:, :, 1]) + x[:, :, 2]
+    return rnd(s) if round_last else s
+
+
 def _prior_cost(prob: BAProblem, cam_q, cam_t, rot_info, trans_info):
     """First-KF SE3 prior (localization_opt.cpp:558-582): its residual,
     information vector, weight (0 without a prior) and cost."""
@@ -167,13 +192,15 @@ def solve_local_ba(
     iters2: int = 5,
     iters3: int = 40,
     term_gain: float = 1e-5,
+    use_bf16: bool = True,
     schur_impl: str = "flatpm",
     linear_solver: str = "lu",
 ) -> BAResult:
     """Staged Schur-complement LM over a fixed-capacity window. Each stage
     stops early when an accepted step gains less than `term_gain`
     (relative) or the damping exceeds 1e4; that test reads one flag per
-    iteration on the host."""
+    iteration on the host. `use_bf16` stages the Hessian products in
+    bfloat16 (module docstring)."""
     if schur_impl not in SCHUR_IMPLS:
         raise ValueError(f"unknown ba_schur_impl {schur_impl!r}; one of {SCHUR_IMPLS}")
     if linear_solver != "lu":
@@ -200,9 +227,11 @@ def solve_local_ba(
     fixed_rows = fix6[:, None] | fix6[None, :]
     eye6L = torch.eye(6 * L, dtype=dtype, device=dev)
     pt_valid = prob.pt_valid
+    rnd = _bf16_round if use_bf16 else (lambda x: x)
 
     def products_at(cam_q, cam_t, pts):
-        return _obs_terms(cam, prob, cam_q, cam_t, pts)
+        r, Jc, Jp, chi2, depth_ok = _obs_terms(cam, prob, cam_q, cam_t, pts)
+        return rnd(r), rnd(Jc), rnd(Jp), chi2, depth_ok
 
     def cost_from(products, cam_q, cam_t, pts, active_obs, active_str, use_huber):
         s = products[3]
@@ -221,10 +250,16 @@ def solve_local_ba(
         w = prob.obs_sigma2_inv * active_obs.to(dtype)
         if use_huber:
             w = w * factors.huber_weight(chi2, huber_delta)
-        # point blocks
-        JpW = Jp * w[..., None, None]
-        H_pp = torch.einsum("pmai,pmaj->pij", JpW, Jp)
-        b_p = torch.einsum("pmai,pma->pi", JpW, r)
+        # weighted rows r*sqrt(w), J*sqrt(w) (P,MO,3,...); rw32 is the
+        # float32 product that b_c reads
+        sqw = rnd(torch.sqrt(w))
+        rw32 = r * sqw[..., None]
+        rw = rnd(rw32)
+        Jcw = rnd(Jc * sqw[..., None, None])
+        Jpw = rnd(Jp * sqw[..., None, None])
+        # point blocks: row sums in the staging type, float32 over MO
+        H_pp = _row_sum(Jpw[..., :, None] * Jpw[..., None, :], rnd, False).sum(1)
+        b_p = _row_sum(Jpw * rw[..., None], rnd, False).sum(1)
         H_str, b_str, _ = _gmm_terms(prob, pts, ba_lambda2, active_str)
         H_pp = H_pp + torch.where(pt_valid[:, None, None], H_str, 0.0)
         b_p = b_p + torch.where(pt_valid[:, None], b_str, 0.0)
@@ -236,10 +271,9 @@ def solve_local_ba(
         Hpp_inv, _ = _inv3(H_pp_d)
 
         # camera blocks: per-observation products, then one-hot sums
-        JcW = Jc * w[..., None, None]
-        JWJc = torch.einsum("pmai,pmaj->pmij", JcW, Jc).reshape(P * MO, 36)
-        JWJp = torch.einsum("pmai,pmaj->pmij", JcW, Jp)              # (P,MO,6,3)
-        JWr = torch.einsum("pmai,pma->pmi", JcW, r).reshape(P * MO, 6)
+        JWJc = torch.einsum("pmai,pmaj->pmij", Jcw, Jcw).reshape(P * MO, 36)
+        JWJp = _row_sum(Jcw[..., :, None] * Jpw[..., None, :], rnd)  # (P,MO,6,3)
+        JWr = torch.einsum("pmai,pma->pmi", Jcw, rw32).reshape(P * MO, 6)
         oh = onehot.reshape(P * MO, L)
         H_cc = (oh.T @ JWJc).reshape(L, 6, 6)
         b_c = oh.T @ JWr                                             # (L,6)

@@ -44,8 +44,9 @@ SIGNATURES = {
     "gmmloc_hamming": [_P, _P, _I, _I, _P, _P],
     "gmmloc_fast_nms": [_P, _I, _I, _P, _P],
     "gmmloc_pose_solve": (
-        [_P] * 12 + [_F, _I, _I, _I, _I, _F] + [_F] * 5 + [_P] * 5
+        [_P] * 13 + [_F, _I, _I, _I, _I, _F] + [_F] * 5 + [_P] * 6
     ),
+    "gmmloc_pose_max_features": [],
 }
 
 
@@ -106,17 +107,22 @@ def build() -> str:
     return out
 
 
+def bind(path: str, names=tuple(SIGNATURES)) -> ctypes.CDLL:
+    """Load a kernel library and declare its C functions `names`."""
+    lib = ctypes.CDLL(path)
+    for name in names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(build())
         return _lib
 
 

@@ -5,8 +5,11 @@ points, MO=8 observation slots, stereo and mono edges, gross outliers,
 degenerate and full GMM structure edges, the first-KF prior): the same
 final cost within 1e-4 relative and the same staged 5/5/40
 edge-deactivation outcome (erased observations, dropped structure
-edges). The reference runs with float32 products (`use_bf16=False`): the
-port has no bfloat16 staging.
+edges). With float32 products (`use_bf16=False`) on both sides the port
+is held at those gates. At both packages' default bfloat16 staging of the
+Hessian products (`use_bf16=True`) it is held within the reference's own
+spread between its layouts, and its rounding points equal XLA's bit for
+bit on the same values.
 
 The seeds are windows whose staged LM converges cleanly. On a window
 where it does not (seed 0 of `ba_problem`), the reference's own "flatpm"
@@ -113,14 +116,17 @@ def _as(lib, d):
     return out
 
 
+BA_ITERS = dict(n_free=4, iters1=5, iters2=5, iters3=40)
+
+
 @pytest.mark.parametrize("seed", [1, 2, 4])
 def test_local_ba_matches_reference(seed):
     jc, tc = _cams()
     d = ba_problem(tc, seed)
-    kw = dict(n_free=4, iters1=5, iters2=5, iters3=40)
     ref = jba.solve_local_ba(jc, jba.BAProblem(**_as("jax", d)), use_bf16=False,
-                             schur_impl="flatpm", **kw)
-    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), schur_impl="flatpm", **kw)
+                             schur_impl="flatpm", **BA_ITERS)
+    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), use_bf16=False,
+                             schur_impl="flatpm", **BA_ITERS)
     rc, oc = float(ref.cost), float(out.cost)
     assert abs(rc - oc) <= 1e-4 * abs(rc), (rc, oc)
     np.testing.assert_array_equal(np.asarray(ref.obs_bad), out.obs_bad.numpy())
@@ -134,6 +140,93 @@ def test_local_ba_matches_reference(seed):
     # the window moved towards the truth
     assert oc < float(tba.solve_local_ba(
         tc, tba.BAProblem(**_as("torch", d)), n_free=4, iters1=0, iters2=0, iters3=0).cost)
+
+
+def _ba_distance(a, b, obs_valid):
+    """Gate quantities between two BA results: relative cost, camera
+    position, points that keep >= 2 observations in b, erased-edge flags."""
+    kept = ((~np.asarray(b.obs_bad)) & obs_valid).sum(1) >= 2
+    return dict(
+        cost=abs(float(a.cost) - float(b.cost)) / abs(float(b.cost)),
+        cam_t=float(np.abs(np.asarray(a.cam_t) - np.asarray(b.cam_t)).max()),
+        pts=float(np.abs(np.asarray(a.pts) - np.asarray(b.pts))[kept].max()),
+        obs_bad=int((np.asarray(a.obs_bad) != np.asarray(b.obs_bad)).sum()),
+        str_drop=int((np.asarray(a.str_drop) != np.asarray(b.str_drop)).sum()),
+    )
+
+
+@pytest.mark.parametrize("seed", [1, 2, 4])
+def test_local_ba_bf16_matches_reference(seed):
+    """Both packages at their default bfloat16 staging. With the Hessian
+    entries rounded to 8 significant bits, each LM step depends on the
+    order of the sums, and the relative-gain stop lands elsewhere: the
+    reference's own "flat" and "flatpm" layouts end 1e-4 m apart in camera
+    position, centimetres apart in weakly held points and up to 1% apart
+    in cost (my CPU runs). The port is held to the reference's "flatpm"
+    within 1.5x that spread (floors 1e-5 relative cost, 1e-5 m, 1e-4 m),
+    with no more erased-edge differences and the same dropped structure
+    edges."""
+    jc, tc = _cams()
+    d = ba_problem(tc, seed)
+    jprob = jba.BAProblem(**_as("jax", d))
+    ref = jba.solve_local_ba(jc, jprob, schur_impl="flatpm", **BA_ITERS)
+    ref_flat = jba.solve_local_ba(jc, jprob, schur_impl="flat", **BA_ITERS)
+    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), **BA_ITERS)
+    spread = _ba_distance(ref_flat, ref, d["obs_valid"])
+    dist = _ba_distance(out, ref, d["obs_valid"])
+    floor = dict(cost=1e-5, cam_t=1e-5, pts=1e-4)
+    for k, f in floor.items():
+        assert dist[k] <= 1.5 * spread[k] + f, (k, dist, spread)
+    assert dist["obs_bad"] <= spread["obs_bad"] and dist["str_drop"] == 0, (dist, spread)
+    assert out.obs_bad.sum() > 0 and out.str_drop.sum() > 0
+
+
+def test_bf16_rounding_points_equal_xla():
+    """The port's staging rounds where XLA rounds the reference's bfloat16
+    chains (`_solve_flat_pm`): the weighted rows, and the sums over the
+    three residual rows of their products, rounded after each add except
+    the last one before a float32 reduction (H_pp, b_p), which XLA runs in
+    float32. Bit for bit on the same values."""
+    import jax
+
+    rng = np.random.default_rng(0)
+    n = 4096
+    r32 = rng.normal(0, 30, (n, 3)).astype(np.float32)
+    j32 = rng.normal(0, 400, (n, 3)).astype(np.float32)
+    w32 = rng.uniform(0, 2, n).astype(np.float32)
+    oh32 = (rng.random(n) < 0.5).astype(np.float32)
+    bf = jnp.bfloat16
+
+    @jax.jit
+    def ref(r, j, w, oh):
+        sqw = jnp.sqrt(w).astype(bf)
+        rw = [r[:, a] * sqw for a in range(3)]
+        jw = [j[:, a] * sqw for a in range(3)]
+        s = sum(jw[a] * rw[a] for a in range(3))
+        red = lambda v: v.astype(jnp.float32).reshape(n // 2, 2).sum(-1)
+        return red(s), red(oh.astype(bf) * s)      # as b_p, as U
+
+    rnd = tba._bf16_round
+    t = torch.tensor
+    sqw = rnd(torch.sqrt(t(w32)))
+    rw = rnd(rnd(t(r32)) * sqw[:, None])
+    jw = rnd(rnd(t(j32)) * sqw[:, None])
+    prod = (jw * rw)[:, None, :]
+    red = lambda v: v.reshape(n // 2, 2).sum(-1).numpy()
+    want_b, want_u = (np.asarray(x) for x in ref(
+        jnp.asarray(r32).astype(bf), jnp.asarray(j32).astype(bf), w32, oh32))
+    np.testing.assert_array_equal(red(tba._row_sum(prod, rnd, False)[:, 0]), want_b)
+    np.testing.assert_array_equal(red(t(oh32) * tba._row_sum(prod, rnd)[:, 0]), want_u)
+    # the other rounding choices differ: the test sees each of them
+    assert (red(tba._row_sum(prod, rnd)[:, 0]) != want_b).any()
+    assert (red(tba._row_sum(prod, lambda x: x, False)[:, 0]) != want_b).any()
+
+
+def test_local_ba_bf16_is_the_default():
+    import inspect
+
+    for fn in (jba.solve_local_ba, tba.solve_local_ba):
+        assert inspect.signature(fn).parameters["use_bf16"].default is True
 
 
 def test_local_ba_rejects_unported_variants():

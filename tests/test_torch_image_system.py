@@ -14,8 +14,8 @@ tests/test_torch_frontend.py), which moves IC angles by up to ~0.01 deg
 and flips descriptor bits, so matches and poses differ slightly. Gates:
 per-frame camera-centre difference < 1 cm and rotation < 0.3 deg, both
 runs' errors against ground truth < 5 cm, and the same keyframe count
-within one. The reference's BA runs with float32 products, as in
-tests/test_torch_system.py.
+within one. Both packages' BAs run with float32 products, as in the
+float32 case of tests/test_torch_system.py.
 """
 
 import dataclasses
@@ -33,7 +33,7 @@ from gmmloc_tpu_torch.eval import slice_run
 from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
 from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
 
-from test_torch_system import _reference_ba_in_f32, jax_config
+from test_torch_system import _ba_in_f32, jax_config
 
 torch.set_num_threads(1)
 
@@ -77,7 +77,7 @@ def _run_jax(run):
 
 
 def test_image_slice_matches_reference(image_run, monkeypatch):
-    _reference_ba_in_f32(monkeypatch)
+    _ba_in_f32(monkeypatch)
     ref_frames, ref_sys = _run_jax(image_run)
 
     fe = ImageFrontend(image_run["cfg"], device="cpu")

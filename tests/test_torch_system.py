@@ -7,11 +7,14 @@ landmarks and 30 frames, on the same frames. Gates: per-frame camera
 centre |dt| < 5 mm and rotation < 0.05 deg, the same keyframe frames,
 and a final point count within 2%.
 
-The reference runs its local BA with the float32 products (`use_bf16=False`):
-its default stages the BA Hessian products in bfloat16 for TPU bandwidth,
-which the port does not (all solver math is float32). With the bf16
-staging the two runs part by up to 2.6 mm / 0.067 deg after the first BA
-(ROADMAP, queue 3).
+The slice runs twice: with both packages' local BA in float32
+(`use_bf16=False`), at these gates, and at their default, which stages
+the BA's Hessian products in bfloat16 (`use_bf16=True`). There the LM
+steps rest on Hessian entries of 8 significant bits and the relative-gain
+stop lands wherever the sums' order puts it: the reference's own "flat"
+and "flatpm" layouts, both bfloat16, part by up to 2.5 mm / 0.069 deg on
+this run (my CPU run), so the bfloat16 case holds the rotation at 0.1 deg
+and keeps the other gates.
 """
 
 import dataclasses
@@ -112,19 +115,31 @@ def _run(system, frames, q_wc, t_wc):
     return poses, kf_idx, system.world.n_points(), per_frame_pts
 
 
-def _reference_ba_in_f32(monkeypatch):
+def _ba_in_f32(monkeypatch):
+    """Both packages' local BA with float32 products (`use_bf16=False`)."""
     import gmmloc_tpu.mapping.localization as jax_localization
+    import gmmloc_tpu_torch.mapping.localization as localization
 
-    solve = jax_localization.local_ba.solve_local_ba
+    for mod in (jax_localization.local_ba, localization.local_ba):
+        solve = mod.solve_local_ba
 
-    def solve_f32(*args, **kw):
-        return solve(*args, use_bf16=False, **kw)
+        def solve_f32(*args, _solve=solve, **kw):
+            return _solve(*args, use_bf16=False, **kw)
 
-    monkeypatch.setattr(jax_localization.local_ba, "solve_local_ba", solve_f32)
+        monkeypatch.setattr(mod, "solve_local_ba", solve_f32)
 
 
 def test_slice_end_to_end_matches_reference(fixture_paths, monkeypatch):
-    _reference_ba_in_f32(monkeypatch)
+    _ba_in_f32(monkeypatch)
+    _check_slice(fixture_paths, max_rot_deg=0.05)
+
+
+def test_slice_end_to_end_bf16_matches_reference(fixture_paths):
+    """Both packages at their default bfloat16 staging of the BA products."""
+    _check_slice(fixture_paths, max_rot_deg=0.1)
+
+
+def _check_slice(fixture_paths, max_rot_deg):
     cfg = slice_config()
     gmm_path = fixture_paths[0]
     kw = dict(pad_to=512, neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
@@ -140,7 +155,7 @@ def test_slice_end_to_end_matches_reference(fixture_paths, monkeypatch):
     for i, ((qa, ta), (qb, tb)) in enumerate(zip(ref[0], out[0])):
         dt = np.linalg.norm(_inverse(qa, ta)[1] - _inverse(qb, tb)[1])
         drot = np.degrees(2 * np.arccos(min(1.0, abs(float(np.dot(qa, qb))))))
-        assert dt < 5e-3 and drot < 0.05, (
+        assert dt < 5e-3 and drot < max_rot_deg, (
             f"frame {i}: |dt| {dt * 1e3:.2f} mm, rotation {drot:.4f} deg; "
             f"keyframes ref {ref[1]} port {out[1]}; points per frame "
             f"ref {ref[3][:i + 1]} port {out[3][:i + 1]}")

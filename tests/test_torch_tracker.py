@@ -4,8 +4,8 @@ The fused track step falls back to this path when it under-matches; here
 both systems run it for every frame (`use_fused_track=False`) on the
 seeded room fixture, with the gates of the end-to-end slice test: camera
 centre |dt| < 5 mm and rotation < 0.05 deg per frame, the same keyframe
-frames, a final point count within 2%. The reference BA runs with
-float32 products, as in tests/test_torch_system.py.
+frames, a final point count within 2%. Both packages' BAs run with
+float32 products, as in the float32 case of tests/test_torch_system.py.
 """
 
 import dataclasses
@@ -22,14 +22,14 @@ from gmmloc_tpu_torch.eval import synthetic
 from gmmloc_tpu_torch.gmm import mixture
 from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
 
-from test_torch_system import (_frames, _reference_ba_in_f32, _run, fixture_paths,  # noqa: F401
+from test_torch_system import (_frames, _ba_in_f32, _run, fixture_paths,  # noqa: F401
                                jax_config, slice_config)
 
 torch.set_num_threads(1)
 
 
 def test_classic_tracking_matches_reference(fixture_paths, monkeypatch):  # noqa: F811
-    _reference_ba_in_f32(monkeypatch)
+    _ba_in_f32(monkeypatch)
     cfg = slice_config()
     cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, use_fused_track=False))
     kw = dict(pad_to=512, neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
