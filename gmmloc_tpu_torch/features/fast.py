@@ -53,23 +53,91 @@ def _window_max_min9(v):
     return out
 
 
+def _window_best9_halves(v, bright: bool):
+    """The arc pass as kernel K4 runs it (`csrc/fast_nms.cu::arc_best9`):
+    with `bright`, max over the 16 circular 9-arcs of the arc minimum
+    (= `_window_max_min9`); else min over the arcs of the arc maximum,
+    whose negation equals `_window_max_min9([-x for x in v])` bit for bit
+    (negation is exact and min(-a, -b) = -max(a, b)). The arc from t
+    (t = 0..7) is the suffix v[t..7] of the first half and the prefix
+    v[8..8+t] of the second; the arc from 8 + t is the suffix v[8+t..15]
+    and the prefix v[0..t]: 57 min/max against 79 for doubling windows."""
+    inner, outer = (torch.minimum, torch.maximum) if bright else (torch.maximum, torch.minimum)
+    pa, pb = [v[0]], [v[8]]
+    for t in range(1, 8):
+        pa.append(inner(pa[-1], v[t]))
+        pb.append(inner(pb[-1], v[8 + t]))
+    sa, sb = [None] * 8, [None] * 8
+    sa[7], sb[7] = v[7], v[15]
+    for t in range(6, 0, -1):
+        sa[t] = inner(sa[t + 1], v[t])
+        sb[t] = inner(sb[t + 1], v[8 + t])
+    sa[0], sb[0] = pa[7], pb[7]
+    best = None
+    for t in range(8):
+        for arc in (inner(sa[t], pb[t]), inner(sb[t], pa[t])):
+            best = arc if best is None else outer(best, arc)
+    return best
+
+
+def _ring_diffs(img):
+    return [_shift2d(img, dy, dx) - img for dy, dx in RING]
+
+
+def _inside_border(img):
+    h, w = img.shape
+    ys = torch.arange(h, device=img.device)[:, None]
+    xs = torch.arange(w, device=img.device)[None, :]
+    return (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
+
+
 def fast_score(img):
     """Continuous FAST corner score per pixel: the max over (bright,
     dark) of the best 9-contiguous-arc strength, 0 where no arc clears
     FAST_TH_LOW; the 3 px border is zero. (An arc clears the threshold
     iff its minimum does, so thresholding the best arc minimum equals the
     JAX package's per-arc mask.)"""
-    d = [_shift2d(img, dy, dx) - img for dy, dx in RING]
+    d = _ring_diffs(img)
     mb = _window_max_min9(d)
     md = _window_max_min9([-x for x in d])
     zero = torch.zeros((), dtype=img.dtype, device=img.device)
     score = torch.maximum(torch.where(mb > FAST_TH_LOW, mb, zero),
                           torch.where(md > FAST_TH_LOW, md, zero))
-    h, w = img.shape
-    ys = torch.arange(h, device=img.device)[:, None]
-    xs = torch.arange(w, device=img.device)[None, :]
-    border = (ys >= 3) & (ys < h - 3) & (xs >= 3) & (xs < w - 3)
-    return torch.where(border, score, zero)
+    return torch.where(_inside_border(img), score, zero)
+
+
+def arc_bounds(d, pairs=range(8)):
+    """(U, L) of the 16 ring differences: U = min_k max(d_k, d_{k+8}) and
+    L = max_k min(d_k, d_{k+8}) over the antipodal pairs k of `pairs` (all
+    8 by default). Every 9-arc holds one index of each pair, so the bright
+    arc strength is <= U and the dark one <= -L, over any subset of the
+    pairs: kernel K4's exact reject."""
+    u = l = None
+    for k in pairs:
+        hi, lo = torch.maximum(d[k], d[k + 8]), torch.minimum(d[k], d[k + 8])
+        u = hi if u is None else torch.minimum(u, hi)
+        l = lo if l is None else torch.maximum(l, lo)
+    return u, l
+
+
+def fast_score_rejecting(img):
+    """`fast_score` in the arithmetic of kernel K4 (`csrc/fast_nms.cu`):
+    the arc passes only where the pair bounds allow a score, over prefix
+    and suffix extrema of the ring's halves, the dark term from the same
+    differences. Returns (score, bright survivors,
+    dark survivors); the score equals `fast_score(img)` bit for bit. The
+    tests and the kernel's bound use it; no path of the port does."""
+    d = _ring_diffs(img)
+    u, l = arc_bounds(d)
+    inside = _inside_border(img)
+    bright = inside & (u > FAST_TH_LOW)
+    dark = inside & (l < -FAST_TH_LOW)
+    mb = _window_best9_halves(d, bright=True)
+    md = -_window_best9_halves(d, bright=False)
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    score = torch.maximum(torch.where(bright & (mb > FAST_TH_LOW), mb, zero),
+                          torch.where(dark & (md > FAST_TH_LOW), md, zero))
+    return score, bright, dark
 
 
 def nms3x3(score):

@@ -48,17 +48,90 @@ def test_pose_kernel_matches_plain(device, cam, n, anchored):
         assert m["ok"], m
 
 
-@pytest.mark.parametrize("shape", [(1280, 1280), (4096, 1280), (37, 100), (1, 65)])
+@pytest.mark.parametrize("shape", [(1280, 1280), (4096, 1280), (37, 100), (1, 65),
+                                   (1200, 1200), (70, 67), (5, 3), (129, 66), (300, 1282)])
 def test_hamming_kernel_exact(device, shape):
+    """Every path shape, M not a multiple of 4 (scalar stores), and N, M
+    under one tile."""
     r = kernel_check.check_hamming_kernel(*shape, device, timing=False)
     assert r["ok"], r
 
 
-@pytest.mark.parametrize("shape", [(480, 752), (96, 130), (4420, 752), (7, 9), (33, 70)])
+def test_hamming_kernel_transposed_call(device):
+    """(4096,1280) against the transposed call: a swapped or transposed
+    mma fragment cannot satisfy both."""
+    from gmmloc_tpu_torch.features import cuda_kernels
+
+    a, b = kernel_check.hamming_problem(4096, 1280, device, seed=5)
+    ab = cuda_kernels.hamming_matrix(a, b)
+    ba = cuda_kernels.hamming_matrix(b, a)
+    assert torch.equal(ab, ba.t())
+    assert torch.equal(ab, cuda_kernels.hamming_matrix_plain(a, b))
+    # descriptors that differ row by row in their popcounts: the rank-1
+    # correction of the tensor-core form must take the right row and column
+    a[::3] = 0
+    b[1::2] = 255
+    assert torch.equal(cuda_kernels.hamming_matrix(a, b),
+                       cuda_kernels.hamming_matrix_plain(a, b))
+
+
+def test_hamming_kernel_writes_into_out(device):
+    from gmmloc_tpu_torch.features import cuda_kernels
+
+    a, b = kernel_check.hamming_problem(100, 36, device, seed=2)
+    out = torch.full((100, 36), -1, dtype=torch.int32, device=device)
+    n0 = cuda_kernels.hamming_matrix.launches
+    assert cuda_kernels.hamming_matrix(a, b, out=out) is out
+    assert cuda_kernels.hamming_matrix.launches == n0 + 1
+    assert torch.equal(out, cuda_kernels.hamming_matrix_plain(a, b))
+    # an output off 16 bytes takes the scalar stores
+    buf = torch.full((100 * 36 + 1,), -1, dtype=torch.int32, device=device)
+    off = buf[1:].view(100, 36)
+    cuda_kernels.hamming_matrix(a, b, out=off)
+    assert torch.equal(off, out) and int(buf[0]) == -1
+
+
+@pytest.mark.parametrize("shape", [(480, 752), (96, 130), (4420, 752), (7, 9), (33, 70),
+                                   (20, 40), (100, 64), (65, 129)])
 def test_fast_nms_kernel_bit_exact(device, shape):
+    """The path shapes, widths that are not a multiple of 4 (the scalar
+    fill), and images smaller than one tile."""
     img = kernel_check.random_image(*shape, device, seed=sum(shape))
     r = kernel_check.check_fast_kernel(img, timing=False)
     assert r["ok"], r
+
+
+@pytest.mark.parametrize("shape", [(4420, 752), (200, 130)])
+def test_fast_nms_kernel_dense_survivors(device, shape):
+    """Every pixel survives the reject in both polarities: the survivor
+    lists are full, and the result is still exact."""
+    img = kernel_check.dense_image(*shape, device)
+    r = kernel_check.check_fast_kernel(img, timing=False)
+    # every pixel inside the 3 px border, in both polarities
+    inside = (shape[0] - 6) * (shape[1] - 6) / (shape[0] * shape[1])
+    assert r["ok"] and abs(r["survivor_share"] - inside) < 1e-9, r
+    assert abs(r["arc_passes_per_pixel"] - 2 * inside) < 1e-9, r
+    # the same slope wrapped to grey levels scores along its seams
+    r = kernel_check.check_fast_kernel(torch.remainder(img, 256.0).contiguous(), timing=False)
+    assert r["ok"] and r["n_kept"] > 0, r
+
+
+def test_fast_nms_kernel_flat_and_offset_views(device):
+    from gmmloc_tpu_torch.features import fast_kernels
+
+    flat = torch.full((480, 752), 77.0, device=device)
+    assert int(fast_kernels.fast_score_nms(flat).count_nonzero()) == 0
+    # a view off 16 bytes takes the scalar fill and stores
+    img = kernel_check.random_image(121, 752, device, seed=4)
+    view = img.reshape(-1)[752:].view(120, 752)[:, :]
+    shifted = img.reshape(-1)[1:1 + 120 * 752].view(120, 752)
+    assert shifted.data_ptr() % 16 != 0
+    for v in (view, shifted):
+        assert torch.equal(fast_kernels.fast_score_nms(v),
+                           fast_kernels.fast_score_nms_plain(v))
+    out = torch.empty_like(view)
+    assert fast_kernels.fast_score_nms(view, out=out) is out
+    assert torch.equal(out, fast_kernels.fast_score_nms_plain(view))
 
 
 def test_image_frontend_on_card_matches_cpu(device):
@@ -100,12 +173,25 @@ def test_kernel_wrappers_raise_on_bad_input(device, cam):
         fast_kernels.fast_score_nms(img[None])
     with pytest.raises(ValueError):
         fast_kernels.fast_score_nms(img.t()[:, :8])
+    for bad in (torch.empty(16, 16, device=device, dtype=torch.float64),
+                torch.empty(16, 8, device=device), torch.empty(16, 32, device=device)[:, ::2],
+                torch.empty(16, 16), img, img[:]):
+        with pytest.raises(ValueError):
+            fast_kernels.fast_score_nms(img, out=bad)
 
     a = torch.zeros(8, 32, dtype=torch.uint8, device=device)
     with pytest.raises(ValueError):
         cuda_kernels.hamming_matrix(a, a[:, :16])
     with pytest.raises(ValueError):
         cuda_kernels.hamming_matrix(a, a.cpu())
+    with pytest.raises(ValueError):
+        cuda_kernels.hamming_matrix(a.view(-1)[8:8 * 32 - 24].view(7, 32), a)   # off 16 bytes
+    for bad in (torch.empty(8, 8, device=device, dtype=torch.int64),
+                torch.empty(8, 4, device=device, dtype=torch.int32),
+                torch.empty(8, 16, device=device, dtype=torch.int32)[:, ::2],
+                torch.empty(8, 8, dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            cuda_kernels.hamming_matrix(a, a, out=bad)
     p = kernel_check.pose_problem(cam, 64)
     args = kernel_check.pose_args(p, device, anchored=False)
     args[2] = args[2].double()
