@@ -18,7 +18,8 @@ Phases, each of which raises on failure (exit code non-zero):
      bit-identical over three launches, and their step sweep (device ms
      over GN steps and over features: the per-step latency and the
      per-feature cost); K3 (Hamming matrix,
-     1280x1280, 4096x1280 and the stereo 1200x1200) exact; K4 (FAST +
+     1280x1280, 4096x1280, the stereo 1200x1200, a triangulation search
+     1280 x 10*1280 and a fusion job 2048x1280) exact; K4 (FAST +
      NMS) exact on a (480,752) and a (96,130) random-integer image, on
      the stacked stereo atlas of the first rendered pair (4420x752) and
      on the densest-surviving image of the atlas's size, with the share
@@ -39,7 +40,25 @@ Phases, each of which raises on failure (exit code non-zero):
      least once per frame, K1-K4 each launched, and GMM anchors kept on at
      least 90% of the measured frames; prints tracked frames/s, p50/p95
      frame times, the front end's ms per frame between CUDA events,
-     keyframes and the launches.
+     keyframes and the launches;
+  7. [production]: the JAX package's production configuration
+     (`slice_run.production_config`: its defaults -- the device-world
+     mirror, fused triangulation, device BA assembly, packed IO -- with
+     the device-chained pipeline at depth 4), the three runs of its
+     `bench.py`: the feature path offline and online (25 warm-up + 200
+     measured frames each, the frames of phase 5) and the image path
+     online (the rendered pairs of phase 6). Checks what phases 5 and 6
+     check (the image path also K4) after `stop()` drained the mapper,
+     at the error gate the JAX package sets its own depth-4 and online
+     runs (8 cm, PROD_MAX_ERR_M), and that depth 4 was kept before and
+     after the run, at least half the measured frames ran chained and
+     the mirror synced; prints
+     frames/s, p50/p95, the chain's primes and
+     rewinds, BA solves and LM iterations and the host timers
+     (`track/chain_*`, `loc/*_sync`).
+
+  8. K3 exact against its plain version at every (N, M) the paths
+     launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
 it; launches made to compare a kernel with its plain version do not
@@ -65,7 +84,10 @@ MEASURED = 200
 N_COMPONENTS = 3300
 N_LANDMARKS = 30000
 MAX_ERR_M = 0.05
-MIN_ANCHORED_SHARE = 0.9   # of the measured frames, K2 keeps > 0 GMM anchors
+# of the measured frames, K2 keeps > 0 GMM anchors. Online too: the JAX
+# package keeps them on every measured frame of its online runs
+# (tools/torch_production_reference.py)
+MIN_ANCHORED_SHARE = 0.9
 
 IMG_WARMUP = 20
 IMG_MEASURED = 150
@@ -74,6 +96,23 @@ IMG_LANDMARKS = 9000
 # frames, from a CPU run of tools/torch_image_reference.py; the image
 # path's gate is the larger of MAX_ERR_M and this + 1 cm
 JAX_IMG_MAX_ERR_M = 0.029363626255594893
+# the production runs' gate: the JAX package's own for its depth-4 and
+# online runs (tests/test_chained_pipeline.py:72, tests/test_online_mode.py:46).
+# On the room fixture its production configuration is less accurate than
+# the slice: 7.22 against 4.04 cm max over 120 frames at feat_cap 256, the
+# port 7.16 against 4.17 (tools/torch_production_reference.py, on the CPU)
+PROD_MAX_ERR_M = 0.08
+
+def k3_shapes():
+    """K3's shapes on the paths: frame x local map (1280^2), the widened
+    motion match (4096x1280), stereo (1200^2), a triangulation search of
+    one keyframe against its TRI_NEIGHBORS neighbours stacked (1280 x
+    10*1280) and a full device fusion job (FUSE_CHUNK landmarks x 1280)."""
+    from gmmloc_tpu_torch.mapping.localization import FUSE_CHUNK, TRI_NEIGHBORS
+
+    return ((1280, 1280), (4096, 1280), (1200, 1200), (1280, TRI_NEIGHBORS * 1280),
+            (FUSE_CHUNK, 1280))
+
 
 KERNELS = {
     "K1": ("optimize_pose", "gmmloc_tpu_torch/csrc/pose_solver.cu",
@@ -108,12 +147,18 @@ def wrappers():
             "K3": cuda_kernels.hamming_matrix, "K4": fast_kernels.fast_score_nms}
 
 
+# every (N, M) the paths launched K3 at, checked exact after the paths
+PATH_K3_SHAPES = set()
+
+
 def reset_launches():
     for fn in wrappers().values():
         fn.launches = 0
+    wrappers()["K3"].shapes.clear()
 
 
 def read_launches() -> dict:
+    PATH_K3_SHAPES.update(wrappers()["K3"].shapes)
     return {k: fn.launches for k, fn in wrappers().items()}
 
 
@@ -154,7 +199,7 @@ def check_kernels(device, card, atlas):
                         feature_ns_per_step=sweep["feature_ns_per_step"],
                         **{k: ms[0][k] for k in keep})
     hs = {}
-    for n, m in ((1280, 1280), (4096, 1280), (1200, 1200)):
+    for n, m in k3_shapes():
         r = kernel_check.check_hamming_kernel(n, m, device)
         log(f"[kernel] K3 {n}x{m} {json.dumps(r)} on {card}")
         if not r["ok"]:
@@ -164,8 +209,8 @@ def check_kernels(device, card, atlas):
     res["K3"] = dict(max_abs_err=max(r["max_abs_err"] for r in hs.values()),
                      library_ms=main["library_ms"], shape="4096x1280",
                      ms_l2=main["ms_l2"],
-                     ms_1280x1280=hs[(1280, 1280)]["ms"],
-                     ms_1200x1200=hs[(1200, 1200)]["ms"],
+                     **{f"ms_{n}x{m}": r["ms"] for (n, m), r in hs.items()
+                        if (n, m) != (4096, 1280)},
                      **{k: main[k] for k in keep})
     fs = {}
     for name, img in (("480x752", kernel_check.random_image(480, 752, device)),
@@ -234,6 +279,10 @@ def _check_path(name, out, errs, gate, n_anchors, needed):
 
 
 def run_feature_path(device, card):
+    """The slice's feature path. Returns (out, the untouched inputs for the
+    production runs: gmap, frames, q_wc, t_wc)."""
+    import copy
+
     import numpy as np
 
     from gmmloc_tpu_torch.eval import slice_run
@@ -250,6 +299,7 @@ def run_feature_path(device, card):
         f"(pad {cfg.caps.gmm_components_pad}), {N_LANDMARKS} landmarks, "
         f"{n_frames} frames, feat_cap {cfg.frame.feat_cap} "
         f"({n_valid} valid/frame), {cfg.camera.width}x{cfg.camera.height} on {card}")
+    fresh = (gmap, copy.deepcopy(frames), q_wc, t_wc)
 
     system = GMMLocSystem(cfg, gmap, device)
     slice_run.timing_table(reset=True)
@@ -275,7 +325,7 @@ def run_feature_path(device, card):
         raise RuntimeError(f"mapping did not run: {out['keyframes']} keyframes, "
                            f"{out['ba_solves']} BA solves")
     _check_path("main", out, errs, MAX_ERR_M, n_anchors, ("K1", "K2", "K3"))
-    return out
+    return out, fresh
 
 
 def image_gate() -> float:
@@ -329,6 +379,117 @@ def run_image_path(device, card, cfg, gmap, images, ts, q_wc, t_wc):
     return out
 
 
+def run_production(card, name, make_system, loop, t_wc, warmup, measured, gate, needed):
+    """One production run: `loop(system)` drives the system that
+    `make_system()` builds and returns `run`/`run_image`'s record with the
+    tracked `frames`. Launches are counted from just before the loop to
+    just after `stop()` (which drains the mapper)."""
+    import numpy as np
+
+    from gmmloc_tpu_torch.eval import slice_run
+
+    system = make_system()
+    if system._depth != 4:
+        raise RuntimeError(f"[{name}] the chained pipeline dropped to depth {system._depth}")
+    slice_run.timing_table(reset=True)
+    reset_launches()
+    ran = loop(system)
+    system.stop()
+    launches = read_launches()
+    if system._depth != 4:
+        raise RuntimeError(f"[{name}] the chained pipeline ran at depth {system._depth}")
+    log(f"[{name}] host timers on {card}:\n{slice_run.timing_table()}")
+    n_anchors = ran["n_anchors"][-measured:]
+    errs = slice_run.pose_errors(ran["frames"], t_wc)
+    loc = system.localizer
+    out = dict(frames=len(ran["frames"]), measured=measured, tracked=system.n_tracked,
+               depth=system._depth, online=system.online is not None,
+               max_err_m=float(errs.max()), mean_err_m=float(errs.mean()),
+               err_gate_m=gate, keyframes=system.world.n_keyframes(),
+               points=system.world.n_points(), ba_solves=len(loc.ba_stats),
+               ba_iters_mean=_ba_iters_mean(system), n_primes=system.n_primes,
+               n_rewinds=system.n_rewinds, n_rewound_frames=system.n_rewound_frames,
+               chained_share=slice_run.chained_share(ran, warmup),
+               mirror_syncs=loc.dev_world.n_syncs,
+               tri_matches_mean=float(np.mean(loc.tri_stats)) if loc.tri_stats else 0.0,
+               launches=launches,
+               **_summary(ran["step_s"], n_anchors, warmup, measured))
+    if ran.get("frontend_ms") is not None:
+        out["frontend_ms_mean"] = float(ran["frontend_ms"][warmup:].mean())
+    log(f"[{name}] {json.dumps(out)} on {card}")
+    if system.online is not None and (system.online.count_queue()
+                                      or system.online._thread is not None):
+        raise RuntimeError(f"[{name}] the mapper was not drained and joined")
+    if out["keyframes"] <= 1 or out["ba_solves"] < 1:
+        raise RuntimeError(f"[{name}] mapping did not run: {out['keyframes']} keyframes, "
+                           f"{out['ba_solves']} BA solves")
+    if out["chained_share"] < 0.5 or out["mirror_syncs"] <= 0:
+        raise RuntimeError(f"[{name}] {out['chained_share']:.2f} of the measured frames "
+                           f"ran chained, {out['mirror_syncs']} mirror syncs")
+    _check_path(name, out, errs, gate, n_anchors, needed)
+    log(f"[result] {name}: {out['fps']:.2f} tracked frames/s, p50 {out['p50_ms']:.1f} ms, "
+        f"p95 {out['p95_ms']:.1f} ms per frame, max error {out['max_err_m'] * 100:.2f} cm, "
+        f"{out['keyframes']} keyframes, {out['ba_solves']} BA solves at "
+        f"{out['ba_iters_mean']:.1f} LM iterations, primes/rewinds/rewound frames "
+        f"{out['n_primes']}/{out['n_rewinds']}/{out['n_rewound_frames']}, chained share "
+        f"{out['chained_share']:.2f}, GMM anchors on {out['anchored_frames']} of "
+        f"{measured} frames on {card}")
+    return out
+
+
+def run_production_phase(device, card, feature_inputs, img_inputs):
+    """[production]: the JAX package's bench.py lines on the port. Returns
+    {run name: out}."""
+    import copy
+
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+
+    gmap, frames, q_wc, t_wc = feature_inputs
+    outs = {}
+    for online in (False, True):
+        name = f"production_feature_{'online' if online else 'offline'}"
+        cfg = slice_run.production_config(online)
+        fr = copy.deepcopy(frames)
+        outs[name] = run_production(
+            card, name, lambda: GMMLocSystem(cfg, gmap, device),
+            lambda system: dict(slice_run.run(system, fr, q_wc, t_wc, device), frames=fr),
+            t_wc, WARMUP, MEASURED, PROD_MAX_ERR_M, ("K1", "K2", "K3"))
+    name = "production_image_online"
+    igmap, images, ts, iq, it = img_inputs
+    cfg = slice_run.image_config(slice_run.production_config(True))
+    frontend = ImageFrontend(cfg, device=device)
+    out = run_production(
+        card, name, lambda: GMMLocSystem(cfg, igmap, device),
+        lambda system: slice_run.run_image(system, frontend, images, ts, iq, it),
+        it, IMG_WARMUP, IMG_MEASURED, PROD_MAX_ERR_M, tuple(KERNELS))
+    if out["launches"]["K4"] < len(images):
+        raise RuntimeError(f"[{name}] K4 launched {out['launches']['K4']} times for "
+                           f"{len(images)} frames")
+    outs[name] = out
+    return outs
+
+
+def check_path_shapes(device, card) -> dict:
+    """K3 exact against its plain version at every (N, M) the paths
+    launched it at (the triangulation searches' N1 x T*N2 for each
+    neighbour count T, each fusion job's B x F, the matchers' shapes)."""
+    from gmmloc_tpu_torch.eval import kernel_check
+
+    bad = []
+    for n, m in sorted(PATH_K3_SHAPES):
+        r = kernel_check.check_hamming_kernel(n, m, device, timing=False)
+        if not r["ok"]:
+            bad.append(r)
+    out = dict(shapes=len(PATH_K3_SHAPES), exact=not bad,
+               largest=max(PATH_K3_SHAPES, key=lambda s: s[0] * s[1]))
+    log(f"[kernel] K3 at the paths' shapes {json.dumps(out)} on {card}")
+    if bad:
+        raise RuntimeError(f"K3 is not exact at the paths' shapes: {bad[:3]}")
+    return out
+
+
 def check_imports(jax_before: bool):
     """No JAX (unless the interpreter had it loaded before the port was
     imported), and no module of the JAX package."""
@@ -356,6 +517,7 @@ def main() -> int:
     from gmmloc_tpu_torch.pipeline.system import set_numerics
     from gmmloc_tpu_torch.utils import cuda_build
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"[card] {card}")
     device = torch.device("cuda", 0)
@@ -379,7 +541,8 @@ def main() -> int:
     atlas = first_pair_atlas(ImageFrontend(img_cfg, device=device), img_inputs[1], device)
 
     kern = check_kernels(device, card, atlas)
-    main_out = run_feature_path(device, card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of the kernel checks")
+    main_out, feature_inputs = run_feature_path(device, card)
     log(f"[result] feature path: {main_out['fps']:.2f} tracked frames/s, p50 "
         f"{main_out['p50_ms']:.1f} ms, p95 {main_out['p95_ms']:.1f} ms per frame "
         f"on {card}")
@@ -390,6 +553,10 @@ def main() -> int:
         f"{img_out['max_err_m'] * 100:.2f} cm, {img_out['keyframes']} keyframes, "
         f"launches K3 {img_out['launches']['K3']} K4 {img_out['launches']['K4']} "
         f"on {card}")
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of the slice paths")
+    prod = run_production_phase(device, card, feature_inputs, img_inputs)
+    k3_paths = check_path_shapes(device, card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)
 
     table = []
@@ -399,14 +566,16 @@ def main() -> int:
             name=f"{key} {fn}", route="cuda", source=src, replaces=rep,
             launches=img_out["launches"][key],
             launches_by_path=dict(feature=main_out["launches"][key],
-                                  image=img_out["launches"][key]),
+                                  image=img_out["launches"][key],
+                                  **{n: o["launches"][key] for n, o in prod.items()}),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], shape=k["shape"],
-            **{x: k[x] for x in ("step_us", "feature_ns_per_step", "ms_l2",
-                                 "ms_1280x1280", "ms_1200x1200", "survivor_share",
-                                 "ms_480x752", "ms_dense_image",
-                                 "dense_image_survivor_share") if x in k}))
+            **{x: v for x, v in k.items()
+               if x.startswith("ms_") or x in ("step_us", "feature_ns_per_step",
+                                               "survivor_share",
+                                               "dense_image_survivor_share")},
+            **({"path_shapes_exact": k3_paths["shapes"]} if key == "K3" else {})))
     log(card)
     log(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

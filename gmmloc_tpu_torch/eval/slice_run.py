@@ -1,10 +1,17 @@
 """The port's main paths as runs: configuration, seeded inputs, the loops.
 
-The slice configuration is `euroc_v1_config()` on the offline protocol
-with the velocity damping of the reference's end-to-end tests, pipeline
-depth 1, the unpacked fused track step and host-assembled mapping
-(`use_device_world=False`). Two main paths run it on the seeded room
-fixture (`room_fixture`):
+Two configurations:
+
+  - the production configuration (`production_config`) is what the JAX
+    package's `bench.py` runs: `euroc_v1_config()` with its defaults (the
+    device-world mirror, fused triangulation, device BA assembly, packed
+    IO), the velocity damping of the reference's end-to-end tests and the
+    device-chained pipeline at depth 4, offline or online;
+  - the slice configuration (`slice_config`) is the first slice's:
+    offline, pipeline depth 1, the unpacked fused track step and
+    host-assembled mapping (`use_device_world=False`).
+
+Two main paths run them on the seeded room fixture (`room_fixture`):
 
   - the feature path (`make_inputs`, `run`): synthetic feature frames
     (`synthetic`) straight into `GMMLocSystem.step`;
@@ -53,6 +60,25 @@ def slice_config(feat_cap: int | None = None, num_features: int | None = None,
     )
 
 
+def production_config(online: bool, feat_cap: int | None = None,
+                      num_features: int | None = None,
+                      local_map_cap: int | None = None) -> SystemConfig:
+    """`euroc_v1_config()` as `bench.py` runs it: velocity_damping=0.9,
+    pipeline_depth=4, `online` as given, every other option at its
+    default; the optional arguments cut widths for small CPU runs."""
+    cfg = euroc_v1_config()
+    tk = dict(velocity_damping=0.9, pipeline_depth=4)
+    if local_map_cap is not None:
+        tk["fused_local_map_cap"] = local_map_cap
+    fr = {}
+    if feat_cap is not None:
+        fr["feat_cap"] = feat_cap
+    if num_features is not None:
+        fr["num_features"] = num_features
+    return cfg.replace(tracking=dataclasses.replace(cfg.tracking, **tk),
+                       frame=dataclasses.replace(cfg.frame, **fr), online=online)
+
+
 def make_inputs(cfg: SystemConfig, out_dir: str, n_frames: int,
                 n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
                 device="cuda"):
@@ -77,11 +103,12 @@ def default_fixture_dir() -> str:
     return os.path.join(os.path.dirname(pkg), "build", "gmmloc_tpu_torch", "fixture")
 
 
-def image_config(**widths) -> SystemConfig:
-    """`slice_config(**widths)` for rendered images: no rectification and
-    no histogram equalisation (the images are synthetic and already
-    rectified), as the JAX package's image bench line runs it."""
-    cfg = slice_config(**widths)
+def image_config(cfg: SystemConfig | None = None, **widths) -> SystemConfig:
+    """`cfg` (default `slice_config(**widths)`) for rendered images: no
+    rectification and no histogram equalisation (the images are synthetic
+    and already rectified), as the JAX package's image bench line runs
+    it."""
+    cfg = slice_config(**widths) if cfg is None else cfg
     return cfg.replace(camera=dataclasses.replace(
         cfg.camera, do_rectify=False, do_equalization=False))
 
@@ -126,6 +153,32 @@ class _AnchorLog:
             self.n_anchors.append(self.dbg.get("n_anchors", 0))
 
 
+class _ChainLog:
+    """After each step: the chained dispatches so far and the frames
+    rewound so far (their chained results were dropped), so a caller can
+    count the frames of a window that ran chained."""
+
+    def __init__(self, system):
+        self.system = system
+        self.chained, self.rewound = [], []
+
+    def record(self):
+        self.chained.append(self.system.tracker.n_chained)
+        self.rewound.append(self.system.n_rewound_frames)
+
+    def arrays(self) -> dict:
+        return dict(chained=np.array(self.chained), rewound=np.array(self.rewound))
+
+
+def chained_share(ran: dict, warmup: int) -> float:
+    """Share of the steps after `warmup` whose frame ran chained (a
+    chained dispatch not rewound), from `run`/`run_image`'s counters."""
+    c, r = ran["chained"], ran["rewound"]
+    n = len(c) - warmup
+    c0, r0 = (c[warmup - 1], r[warmup - 1]) if warmup else (0, 0)
+    return float((c[-1] - c0) - (r[-1] - r0)) / max(1, n)
+
+
 def _check_tracked(system, st, i):
     if system.track_failed or (st is not None and not st.res):
         raise RuntimeError(f"tracking failed at frame {i}")
@@ -138,12 +191,15 @@ def run_image(system, frontend, images, ts, q_wc, t_wc, first_idx: int = 0) -> d
     first also holding the first dispatch, the last the flush), `n_anchors`
     as `run` records them, `frontend_ms`, the time between CUDA events
     around each frame's dispatch (its device time plus any wait of the
-    device for the host to enqueue; None on the CPU), and `frames`, the
-    tracked Frames. Frame indices start at `first_idx` (a run that goes on
-    from an earlier one). Raises on a tracking failure."""
+    device for the host to enqueue; None on the CPU), `frames`, the
+    tracked Frames, and the chain counters per step (`chained_share`).
+    Frame indices start at `first_idx` (a run that goes on
+    from an earlier one). Stats lag by the pipeline depth (None while it
+    fills). Raises on a tracking failure."""
     cuda = frontend.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
     log = _AnchorLog(system)
+    chain = _ChainLog(system)
     step_s, marks, frames = [], [], []
     pend, i_prev = None, -1
     sync()
@@ -163,6 +219,7 @@ def run_image(system, frontend, images, ts, q_wc, t_wc, first_idx: int = 0) -> d
             st = system.step(frames[-1], q_wc[i_prev], t_wc[i_prev])
             _check_tracked(system, st, i_prev)
             log.record()
+            chain.record()
         dt = time.perf_counter() - t1
         if pend is None:
             t_carry += dt
@@ -179,17 +236,20 @@ def run_image(system, frontend, images, ts, q_wc, t_wc, first_idx: int = 0) -> d
     log.record()
     fe_ms = np.array([a.elapsed_time(b) for a, b in marks]) if cuda else None
     return dict(step_s=np.array(step_s), n_anchors=np.array(log.n_anchors),
-                frontend_ms=fe_ms, frames=frames)
+                frontend_ms=fe_ms, frames=frames, **chain.arrays())
 
 
 def run(system, frames, q_wc, t_wc, device) -> dict:
     """Step every frame through `system` (then flush). Returns `step_s`,
     the host wall time of each step call in seconds, and `n_anchors`, the
     GMM anchors that survived the pose solve of each frame the tracker
-    completed. Raises on a tracking failure. On a CUDA device the clock
-    stops after a synchronize."""
+    completed, and the chain counters per step (`chained_share`). Stats
+    lag by the pipeline depth (None while it fills); the
+    last step's time holds the flush. Raises on a tracking failure. On a
+    CUDA device the clock stops after a synchronize."""
     sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
     log = _AnchorLog(system)
+    chain = _ChainLog(system)
     step_s = []
     sync()
     for i, f in enumerate(frames):
@@ -198,6 +258,7 @@ def run(system, frames, q_wc, t_wc, device) -> dict:
         step_s.append(time.perf_counter() - t1)
         _check_tracked(system, st, i)
         log.record()
+        chain.record()
     t1 = time.perf_counter()
     system.flush()
     sync()
@@ -205,7 +266,8 @@ def run(system, frames, q_wc, t_wc, device) -> dict:
     if system.track_failed:
         raise RuntimeError("tracking failed at the final frame")
     log.record()
-    return dict(step_s=np.array(step_s), n_anchors=np.array(log.n_anchors))
+    return dict(step_s=np.array(step_s), n_anchors=np.array(log.n_anchors),
+                **chain.arrays())
 
 
 def timing_table(reset: bool = True) -> str:

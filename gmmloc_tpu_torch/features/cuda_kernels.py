@@ -4,7 +4,7 @@
 `gmmloc_tpu/features/pallas_kernels.py::hamming_matrix_pallas`. Tensors on
 the CPU go to `hamming_matrix_plain` (XOR + popcount on tensors); tensors
 on a CUDA device launch the kernel or raise. Launches are counted in
-`hamming_matrix.launches`.
+`hamming_matrix.launches`, their distinct (N, M) in `hamming_matrix.shapes`.
 """
 
 from __future__ import annotations
@@ -87,8 +87,9 @@ def hamming_matrix(desc_a, desc_b, out=None):
         err = lib.gmmloc_hamming(desc_a.data_ptr(), desc_b.data_ptr(), n, m,
                                  out.data_ptr(), stream)
     cuda_build.check(err, "gmmloc_hamming")
-    hamming_matrix.launches += 1
+    cuda_build.count_launch(hamming_matrix, (n, m))
     return out
 
 
 hamming_matrix.launches = 0
+hamming_matrix.shapes = set()   # the (N, M) of the launches, for the card checks

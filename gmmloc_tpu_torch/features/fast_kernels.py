@@ -55,7 +55,7 @@ def fast_score_nms(img, out=None):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gmmloc_fast_nms(img.data_ptr(), h, w, out.data_ptr(), stream)
     cuda_build.check(err, "gmmloc_fast_nms")
-    fast_score_nms.launches += 1
+    cuda_build.count_launch(fast_score_nms)
     return out
 
 

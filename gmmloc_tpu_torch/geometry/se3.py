@@ -36,7 +36,8 @@ def quat_mul(a, b):
 
 
 def quat_conj(q):
-    return q * q.new_tensor([1.0, -1.0, -1.0, -1.0])
+    # the sign flip as a negation (no host-made tensor: capturable in a CUDA graph)
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
 def cross(a, b):

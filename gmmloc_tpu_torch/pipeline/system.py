@@ -1,20 +1,32 @@
 """System orchestrator: the tracking + mapping loop on one device.
 
 PyTorch port of `gmmloc_tpu/pipeline/system.py` (ref gmmloc.cpp spin
-:123-197, needNewKeyFrame :324-364) for the offline protocol: the back-end
-runs synchronously after each keyframe insertion. With the default
-`pipelined_track`, `step` enqueues the frame's fused track step and
-returns the PREVIOUS frame's stat (its read-back, keyframe decision and
-mapping run on the next call); `flush` drains the last frame. Completion
-order, and hence every computed value, is that of the synchronous loop.
+:123-197, needNewKeyFrame :324-364).
 
-Not ported here (they raise): online threaded mapping, the device-world
-mirror, the packed and device-chained track steps, relocalization and
-loop closing.
+  - Offline (`online=False`): the back-end runs synchronously after each
+    keyframe insertion. Online: a mapper thread consumes the keyframe
+    queue (`mapping/online.py`), as the reference's two-thread split
+    (gmmloc.cpp:56-59).
+  - `pipelined_track` (the default), depth 1: `step` enqueues the
+    frame's fused track step and returns the PREVIOUS frame's stat (its
+    read-back, keyframe decision and mapping run on the next call);
+    completion order, and hence every value, is the synchronous loop's.
+  - `pipeline_depth` > 1 (with packed IO and the device-world mirror):
+    frames are dispatched from device-chained state and drained that
+    many frames late; an anomaly at drain (an under-match, a coasted
+    pose) re-runs the frames still in flight synchronously.
+  - `flush` drains every frame in flight; `stop` also drains and joins
+    the mapper thread.
+
+Not ported (they raise): the non-fused keyframe association,
+relocalization and loop closing.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import time
+from collections import deque
 from typing import Optional
 
 import numpy as np
@@ -30,6 +42,7 @@ from ..geometry import camera as cam_mod
 from ..gmm import mixture
 from ..mapping.association import GMMAssociator
 from ..mapping.localization import Localization
+from ..mapping.online import OnlineLocalization
 from ..tracking.tracker import Tracker, TrackStat
 
 
@@ -42,11 +55,12 @@ def set_numerics() -> None:
 
 
 class GMMLocSystem:
-    def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device="cuda"):
-        if cfg.online:
-            raise ValueError("online (threaded) mapping is not ported; set online=False")
+    def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device="cuda",
+                 vocabulary=None):
         if not cfg.loc.fused_kf_assoc:
             raise ValueError("only the fused keyframe association is ported")
+        if vocabulary is not None or cfg.enable_loop_closing:
+            raise ValueError("relocalization and loop closing are not ported")
         set_numerics()
         self.cfg = cfg
         self.device = resolve(device)
@@ -59,7 +73,26 @@ class GMMLocSystem:
         self.localizer = Localization(cfg, self.cam, self.world, self.assoc,
                                       self.device)
         self.initialized = False
-        self._pending = None
+        self._pending = None            # the in-flight frame at depth 1
+        self._pendq = deque()           # the in-flight frames at depth > 1
+        tk = cfg.tracking
+        self._depth = max(1, tk.pipeline_depth)
+        if self._depth > 1:
+            # the chained mode needs packed IO, keyframe-cadence map
+            # refresh and the device-world mirror
+            if not (tk.use_fused_track and tk.pipelined_track and tk.fused_packed_io):
+                self._depth = 1
+            elif tk.fused_map_refresh != "kf":
+                self.cfg = cfg = cfg.replace(
+                    tracking=dataclasses.replace(tk, fused_map_refresh="kf"))
+                self.tracker.cfg = cfg
+        self.tracker.dev_world = self.localizer.dev_world
+        if self.localizer.dev_world is None:
+            self._depth = 1
+        self.online = None
+        if cfg.online:
+            self.online = OnlineLocalization(self.localizer)
+            self.online.start()
         self.curr_frame: Optional[Frame] = None
         self.last_frame: Optional[Frame] = None
         self.curr_keyframe: int = -1
@@ -67,6 +100,10 @@ class GMMLocSystem:
         self.vel_q: Optional[np.ndarray] = None
         self.vel_t: Optional[np.ndarray] = None
         self.track_failed = False
+        # chained-pipeline health counters
+        self.n_primes = 0
+        self.n_rewinds = 0
+        self.n_rewound_frames = 0
 
     @classmethod
     def from_gmm_file(cls, cfg: SystemConfig, path: str, device="cuda") -> "GMMLocSystem":
@@ -160,12 +197,24 @@ class GMMLocSystem:
         c1b = stat.num_match_inliers < num_ref * 0.25 or stat.ratio_map < 0.3
         c2 = (stat.num_match_inliers < num_ref * th_ref_ratio
               or stat.ratio_map < th_map_ratio) and stat.num_match_inliers > cfg.kf_min_inliers
-        mapper = self.localizer
+        mapper = self.online if self.online is not None else self.localizer
         if (c1a or c1b or mapper.is_idle) and c2:
             if mapper.is_idle:
                 return True
-            mapper.abort_ba = True
-            return mapper.count_queue() < cfg.kf_queue_cap
+            if self.online is not None:
+                self.online.interrupt_ba()
+            else:
+                self.localizer.abort_ba = True
+            if mapper.count_queue() < cfg.kf_queue_cap:
+                return True
+            if self.online is not None and cfg.kf_wait_ms > 0:
+                # bounded back-pressure wait (TrackingConfig.kf_wait_ms)
+                deadline = time.monotonic() + cfg.kf_wait_ms * 1e-3
+                while time.monotonic() < deadline:
+                    time.sleep(0.002)
+                    if mapper.count_queue() < cfg.kf_queue_cap:
+                        return True
+            return False
         return False
 
     # ------------------------------------------------------------------
@@ -173,10 +222,15 @@ class GMMLocSystem:
     def step(self, frame: Frame, gt_q_wc=None, gt_t_wc=None) -> Optional[TrackStat]:
         """One iteration of the main loop (gmmloc.cpp:128-195). In
         pipelined mode the returned stat belongs to the previous frame
-        (None until one completes); call flush() after the last frame."""
+        (None until one completes); call flush() after the last frame.
+        Raises the mapper thread's exception, if it died of one."""
+        if self.online is not None:
+            self.online.check()
         tk = self.cfg.tracking
         if not (tk.pipelined_track and tk.use_fused_track):
             return self._step_sync(frame, gt_q_wc, gt_t_wc)
+        if self._depth > 1:
+            return self._step_chained(frame, gt_q_wc, gt_t_wc)
         stat_prev = self.drain()
         if self.track_failed:
             return stat_prev
@@ -191,6 +245,98 @@ class GMMLocSystem:
         self._pending = pend
         return stat_prev
 
+    # ---------------- the deep device-chained pipeline ------------------
+
+    def _step_chained(self, frame: Frame, gt_q_wc=None, gt_t_wc=None):
+        """step() at pipeline_depth > 1: frames are dispatched from the
+        device-chained state (tracker.fused_dispatch_chained) and drained
+        `pipeline_depth` frames late. The returned stat belongs to the
+        frame drained in this call (None while the pipeline fills)."""
+        stat_prev = None
+        if len(self._pendq) >= self._depth:
+            stat_prev = self._drain_one()
+            if self.track_failed:
+                return stat_prev
+        if not self.initialized:
+            self._drain_all()
+            return self._step_sync(frame, gt_q_wc, gt_t_wc)
+        if self.tracker._chain is None or not self._pendq:
+            # prime: the previous frame must be drained, so the host can
+            # build the first link's inputs itself
+            st = self._drain_all()
+            stat_prev = st if st is not None else stat_prev
+            if self.track_failed:
+                return stat_prev
+            self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
+            self.tracker.host_vel = (self.vel_q, self.vel_t)
+            self.n_primes += 1
+            pend = self.tracker.fused_dispatch(frame, prime_chain=True)
+            if pend is None:
+                return self._track_and_map(frame)
+            self._pendq.append(pend)
+            return stat_prev
+        self._pendq.append(self.tracker.fused_dispatch_chained(frame))
+        return stat_prev
+
+    def _drain_one(self) -> Optional[TrackStat]:
+        """Drain the oldest in-flight frame: read-back, host bookkeeping,
+        keyframe policy and mapping. An anomaly re-runs the frames still
+        in flight synchronously (their device results assumed a pose
+        chain it invalidated)."""
+        pend = self._pendq.popleft()
+        stat = self.tracker.fused_complete(pend)
+        # the system's frame chain rotates at drain time (poses are final
+        # here; init_pose_guess rotates it on the synchronous paths)
+        self.last_frame = self.curr_frame
+        self.curr_frame = pend.frame
+        if stat is None:
+            # under-match: the classic path for this frame, then rewind
+            st = self._track_and_map(pend.frame, classic_only=True)
+            self._update_host_vel()
+            return self._rewind_rest(st)
+        st = self._track_and_map(pend.frame, pre_stat=stat)
+        self._update_host_vel()
+        if self.track_failed or self.tracker.dbg.get("coasted"):
+            # a coasted pose replaced the solved one the device chain
+            # continued from
+            return self._rewind_rest(st)
+        return st
+
+    def _drain_all(self) -> Optional[TrackStat]:
+        st = None
+        while self._pendq:
+            s = self._drain_one()
+            st = s if s is not None else st
+            if self.track_failed:
+                break
+        return st
+
+    def _rewind_rest(self, stat_first) -> Optional[TrackStat]:
+        """Re-run the frames still in flight synchronously (re-priming the
+        chain); each costs one synchronous frame."""
+        frames = [p.frame for p in self._pendq]
+        self._pendq.clear()
+        self.tracker.invalidate_chain()
+        self.n_rewinds += 1
+        self.n_rewound_frames += len(frames)
+        st = stat_first
+        for f in frames:
+            f._dev_cur = None        # its pose and assignments are reset
+            f.mappoint[:] = -1
+            f.is_outlier[:] = False
+            s = self.step(f)
+            st = s if s is not None else st
+            if self.track_failed:
+                break
+        return st
+
+    def _update_host_vel(self) -> None:
+        """The host's velocity state from the drained poses (the device
+        chain advances its own copy; the host's seeds primes and
+        rewinds)."""
+        if self.last_frame is not None and self.curr_frame is not None:
+            self._advance_velocity(self.curr_frame, self.last_frame)
+
     def drain(self) -> Optional[TrackStat]:
         """Complete the in-flight frame: read-back, keyframe policy,
         mapping, trajectory record. No-op without a pending dispatch."""
@@ -204,15 +350,24 @@ class GMMLocSystem:
         return self._track_and_map(pend.frame, pre_stat=stat)
 
     def flush(self) -> Optional[TrackStat]:
-        """Drain the in-flight frame (end of sequence)."""
-        return self.drain()
+        """Drain every in-flight frame (end of sequence)."""
+        st = self.drain()
+        st2 = self._drain_all()
+        return st2 if st2 is not None else st
+
+    def stop(self) -> None:
+        """Drain the in-flight frames, then the mapper thread's queue, and
+        join it (ref gmmloc.cpp:366). Raises the mapper's exception, or if
+        it does not finish in time. A second call does nothing more."""
+        self.flush()
+        if self.online is not None:
+            self.online.stop()
 
     def _step_sync(self, frame: Frame, gt_q_wc=None, gt_t_wc=None) -> TrackStat:
         self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
         if not self.initialized:
             kf = self.process_keyframe(frame, is_first=True)
-            self.localizer.insert_keyframe(kf)
-            self.localizer.spin_once()
+            self._map_keyframe(kf)
             frame.ref_kf = kf
             self.curr_keyframe = kf
             self.tracker.initialize(frame)
@@ -238,13 +393,20 @@ class GMMLocSystem:
             with Timer("kf/process"):
                 kf = self.process_keyframe(frame)
             self.curr_keyframe = kf
-            self.localizer.insert_keyframe(kf)
-            self.localizer.spin_once()
+            self._map_keyframe(kf)
         self.n_tracked += 1
         if frame.ref_kf < 0:
             frame.ref_kf = self.tracker.ref_keyframe
         self.world.update_frame_info(frame)
         return stat
+
+    def _map_keyframe(self, kf: int) -> None:
+        """Queue the keyframe for the mapper thread, or map it now."""
+        if self.online is not None:
+            self.online.insert_keyframe(kf)
+        else:
+            self.localizer.insert_keyframe(kf)
+            self.localizer.spin_once()
 
     def export_trajectory(self, path: Optional[str] = None):
         """(timestamps (N,), q_wc (N,4), t_wc (N,3)) of every tracked

@@ -119,7 +119,7 @@ def optimize_pose(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid,
     pose, counts, chi2, outlier, _ = _launch(
         cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, None,
         rounds, iters, step_tol)
-    optimize_pose.launches += 1
+    cuda_build.count_launch(optimize_pose)
     return pose_solver.PoseOptResult(
         q=pose[:4], t=pose[4:7], is_outlier=outlier, num_inliers=counts[0],
         chi2=chi2, gn_iters=counts[2])
@@ -145,7 +145,7 @@ def optimize_pose_anchored(cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv,
     pose, counts, chi2, outlier, anc_out = _launch(
         cam, q0, t0, x_w, obs_uvr, is_stereo, sigma2_inv, valid, anc,
         rounds, iters, step_tol)
-    optimize_pose_anchored.launches += 1
+    cuda_build.count_launch(optimize_pose_anchored)
     return pose_solver.PoseAnchorResult(
         q=pose[:4], t=pose[4:7], is_outlier=outlier, num_inliers=counts[0],
         chi2=chi2, anc_outlier=anc_out, num_anchors=counts[1],

@@ -1,16 +1,19 @@
 """Per-frame tracking front-end.
 
-PyTorch port of `gmmloc_tpu/tracking/tracker.py` on the unpacked fused
-path: `fused_dispatch` uploads the last-frame set, the current features
-and the local-map snapshot and enqueues `fused.track_core` (kernels K3,
-K1, K2 on the card) without waiting; `fused_complete` reads the result
-back and does the host bookkeeping. A frame that under-matches falls into
-the classic path (tracking.cpp track:35-116): updateLastFrame ->
-createTemporalPoints -> trackWithMotionModel [-> trackKeyFrame] ->
-updateLocalMap -> searchLocalPoints -> trackLocalMap.
-
-The host registry (`MapState`) and the `Frame` container are shared with
-the JAX package.
+PyTorch port of `gmmloc_tpu/tracking/tracker.py`. `fused_dispatch`
+uploads the last-frame set, the current features and the local-map
+snapshot and enqueues one fused track step (kernels K3, K1, K2 on the
+card) without waiting: `fused.track_core` on separate tensors, or with
+`TrackingConfig.fused_packed_io` (the default) `fused_track_step_packed`
+on three float32 tables and static GMM/scale tables.
+`fused_dispatch_chained` enqueues the next frame from the previous
+dispatch's device state alone (`fused_track_step_chained`: the pose and
+landmark chains and the temporal points computed on the device).
+`fused_complete` reads a result back and does the host bookkeeping. A
+frame that under-matches falls into the classic path (tracking.cpp
+track:35-116): updateLastFrame -> createTemporalPoints ->
+trackWithMotionModel [-> trackKeyFrame] -> updateLocalMap ->
+searchLocalPoints -> trackLocalMap.
 """
 
 from __future__ import annotations
@@ -41,26 +44,46 @@ class TrackStat:
     ratio_map: float = 0.0
 
 
+class Readback:
+    """A packed result vector on its way to the host. On the card the copy
+    into pinned memory is enqueued right behind the step that produces it
+    and an event marks its end, so reading it waits for that step only,
+    not for the frames enqueued after it."""
+
+    def __init__(self, x):
+        self.event = None
+        if x.device.type == "cuda":
+            self.host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+            self.host.copy_(x, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(x.device))
+        else:
+            self.host = x
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
 @dataclass
 class FusedPending:
     """A dispatched fused track step: the device result (not yet read) and
     what fused_complete needs for the bookkeeping."""
 
     frame: Frame
-    result: fused.FusedTrackResult
+    result: object        # FusedTrackResult, or a Readback of the packed vector
     lp: np.ndarray        # local-map point ids aligned with kernel slots
     n_lp: int
-    q_pred: np.ndarray    # constant-velocity prediction (plausibility gate)
-    t_pred: np.ndarray
+    q_pred: Optional[np.ndarray]  # constant-velocity prediction (plausibility
+    t_pred: Optional[np.ndarray]  # gate); chained: read from the result
+    packed: bool = False
+    chained: bool = False   # the last-frame prep runs at drain time
 
 
 class Tracker:
     def __init__(self, cfg: SystemConfig, cam: cam_mod.CameraParams,
                  world: MapState, device, gmm_views: Optional[dict] = None):
-        if cfg.tracking.fused_packed_io or cfg.tracking.pipeline_depth > 1:
-            raise ValueError(
-                "the packed and device-chained track steps are not ported; set "
-                "TrackingConfig.fused_packed_io=False and pipeline_depth=1")
         if cfg.tracking.pose_impl != "auto":
             raise ValueError(
                 f"pose_impl {cfg.tracking.pose_impl!r}: the port has one pose "
@@ -86,9 +109,26 @@ class Tracker:
         self.log_sf = pyr["log_scale_factor"]
         self.num_levels = cfg.frame.num_levels
         self._scales_dev = self._t(self.scale_factors)
+        # packed path: static tables and the keyframe-cadence map table
+        self._dev: dict = {}
+        # device-chained state: the last dispatch's device tensors (None =
+        # not primed)
+        self._chain: Optional[dict] = None
+        self.dev_world = None      # the localizer's mirror, set by the system
+        self.host_vel = None       # (vel_q, vel_t), set by the system at a prime
+        self.n_chained = 0         # chained dispatches
 
     def _t(self, a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _upload(self, a: np.ndarray):
+        """A float32 host table on the device without waiting: on the card
+        through pinned memory and a copy enqueued on the current stream (a
+        copy from pageable memory would wait for every queued frame)."""
+        x = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+        if self.device.type != "cuda":
+            return x
+        return x.pin_memory().to(self.device, non_blocking=True)
 
     # ------------------------------------------------------------------
 
@@ -98,6 +138,7 @@ class Tracker:
         self.local_keyframes = [frame.ref_kf]
 
     def track(self, frame: Frame) -> TrackStat:
+        self.invalidate_chain()  # a synchronous frame: the device chain is stale
         if self.cfg.tracking.use_fused_track:
             pend = self.fused_dispatch(frame)
             st = self.fused_complete(pend) if pend is not None else None
@@ -110,6 +151,7 @@ class Tracker:
     def track_classic_fallback(self, frame: Frame) -> TrackStat:
         """Classic path for a frame whose fused dispatch under-matched
         (its last-frame prep already ran)."""
+        self.invalidate_chain()
         return self._track_classic(frame, prep=False)
 
     def _track_classic(self, frame: Frame, prep: bool = True) -> TrackStat:
@@ -494,7 +536,6 @@ class Tracker:
 
     def _anc_tables(self, point_ids, n_slots):
         """Slot-aligned GMM anchor tables (vetted associations only)."""
-        w = self.world
         gv = self.gmm_views
         typ = np.zeros(n_slots, np.int32)
         mean = np.zeros((n_slots, 3), np.float32)
@@ -502,9 +543,7 @@ class Tracker:
         sqi = np.zeros((n_slots, 3, 3), np.float32)
         n = len(point_ids)
         if n:
-            pid = np.asarray(point_ids)
-            pc = np.clip(pid, 0, None)
-            comp = np.where((pid >= 0) & w.pt_assoc_vetted[pc], w.pt_assoc_comp[pc], -1)
+            comp = self._vetted_comp(np.asarray(point_ids)).astype(np.int64)
             k = np.maximum(comp, 0)
             deg = gv["is_degenerated"][k]
             typ[:n] = np.where(comp >= 0, np.where(deg, pose_solver.ANCHOR_DEG,
@@ -515,10 +554,13 @@ class Tracker:
         t = self._t
         return t(typ, torch.int64), t(mean), t(norm), t(sqi)
 
-    def fused_dispatch(self, frame: Frame) -> Optional[FusedPending]:
+    def fused_dispatch(self, frame: Frame,
+                       prime_chain: bool = False) -> Optional[FusedPending]:
         """Last-frame prep + one enqueued track step; the read-back waits
         for fused_complete. Returns None to request the classic path (too
-        few carried landmarks)."""
+        few carried landmarks). prime_chain: record the packed dispatch's
+        device tensors as the root of the chain that
+        fused_dispatch_chained continues."""
         w = self.world
         tk = self.cfg.tracking
         t_prep = Timer("track/fused_prep").start()
@@ -534,14 +576,20 @@ class Tracker:
         last_pts = np.zeros((last.feat_cap, 3), np.float32)
         last_pts[sel] = w.pt_pos[last.mappoint[sel]]
 
-        # local-map snapshot without the points the last frame carries
+        # local-map snapshot without the points the last frame carries; in
+        # keyframe-refresh mode the step drops them itself (map_is_stale),
+        # since the carried set changes per frame and the table does not
         P = tk.fused_local_map_cap
+        kf_mode = tk.fused_packed_io and tk.fused_map_refresh == "kf"
         lp = self.local_points
         lp = lp[w.pt_valid[lp]] if len(lp) else lp
-        if len(lp):
+        if len(lp) and not kf_mode:
             lp = lp[~np.isin(lp, last.mappoint[sel])]
         lp = lp[:P]
         n_lp = len(lp)
+        if tk.fused_packed_io:
+            return self._dispatch_packed(frame, last, q_has, last_pts, lp, t_prep,
+                                         prime_chain and kf_mode)
         map_pts = np.zeros((P, 3), np.float32)
         map_desc = np.zeros((P, 32), np.uint8)
         map_normal = np.zeros((P, 3), np.float32)
@@ -588,25 +636,207 @@ class Tracker:
         return FusedPending(frame=frame, result=res, lp=lp, n_lp=n_lp,
                             q_pred=frame.q_cw.copy(), t_pred=frame.t_cw.copy())
 
+    # ---------------- packed and chained paths ---------------------------
+
+    def _pack_frame(self, frame: Frame) -> np.ndarray:
+        """The frame's (F, CUR_W) float32 table; the descriptor lanes get
+        the raw bytes through a uint8 view."""
+        pk = np.zeros((frame.feat_cap, fused.CUR_W), np.float32)
+        pk[:, 0:2] = frame.uv
+        pk[:, 2] = frame.ur
+        pk[:, 3] = frame.angle
+        pk[:, 4] = self.sigma2_inv[frame.octave]
+        pk[:, 5] = frame.valid
+        pk[:, 6] = frame.octave
+        b = 4 * fused.CUR_DESC
+        pk.view(np.uint8)[:, b:b + 32] = frame.desc
+        return pk
+
+    def _dev_cur(self, frame: Frame):
+        """The frame's packed table on the device (uploaded at its own
+        dispatch; rebuilt here after a classic-path frame)."""
+        d = getattr(frame, "_dev_cur", None)
+        if d is None:
+            d = frame._dev_cur = self._upload(self._pack_frame(frame))
+        return d
+
+    def _dev_static(self):
+        """(gmm_tab, scales): the static tables, uploaded once."""
+        if "gmm_tab" not in self._dev:
+            gv = self.gmm_views
+            tab = np.zeros((len(gv["means"]) if gv is not None else 1, fused.GMM_W),
+                           np.float32)
+            if gv is not None:
+                tab[:, 0:3] = gv["means"]
+                tab[:, 3:6] = gv["normal"]
+                tab[:, 6:15] = gv["sqrt_info"].reshape(-1, 9)
+                tab[:, 15] = gv["is_degenerated"]
+            self._dev["gmm_tab"] = self._upload(tab)
+        return self._dev["gmm_tab"], self._scales_dev
+
+    def _vetted_comp(self, pid: np.ndarray) -> np.ndarray:
+        """BA-vetted GMM component per point id (-1 where none or not
+        vetted), the gate of _gather_anchors and _anc_tables."""
+        w = self.world
+        pc = np.clip(pid, 0, None)
+        return np.where((pid >= 0) & w.pt_assoc_vetted[pc], w.pt_assoc_comp[pc],
+                        -1).astype(np.float32)
+
+    def _map_table(self, lp: np.ndarray) -> np.ndarray:
+        """The (P, MAP_W) local-map table of point ids lp."""
+        w = self.world
+        tab = np.zeros((self.cfg.tracking.fused_local_map_cap, fused.MAP_W), np.float32)
+        tab[:, 9] = -1.0
+        n = len(lp)
+        if n:
+            tab[:n, 0:3] = w.pt_pos[lp]
+            tab[:n, 3:6] = w.pt_normal[lp]
+            tab[:n, 6] = w.pt_min_dist[lp]
+            tab[:n, 7] = w.pt_max_dist[lp]
+            tab[:n, 8] = 1.0
+            tab[:n, 9] = self._vetted_comp(lp)
+            tab[:n, 10] = lp
+            b = 4 * fused.MAP_DESC
+            tab.view(np.uint8)[:n, b:b + 32] = w.pt_desc[lp]
+        return tab
+
+    def _cached_map(self, lp: np.ndarray, use_cache: bool):
+        """(map table on the device, its point ids). Keyframe-refresh mode
+        keys the table on MapState.map_version, which every persistent
+        map change bumps; the cached ids replace `lp` then."""
+        token = self.world.map_version
+        if use_cache and self._dev.get("map_token") == token:
+            return self._dev["map_dev"], self._dev["map_lp"]
+        map_dev = self._upload(self._map_table(lp))
+        if use_cache:
+            self._dev.update(map_token=token, map_dev=map_dev, map_lp=lp)
+        return map_dev, lp
+
+    def _anchor_kw(self) -> dict:
+        tk = self.cfg.tracking
+        return dict(use_anchors=tk.use_gmm_pose_anchor and self.gmm_views is not None,
+                    anchor_lambda2=float(tk.anchor_lambda2),
+                    anchor_chi2_gate=float(tk.anchor_chi2_gate),
+                    anchor_min_edges=int(tk.anchor_min_edges))
+
+    def _dispatch_packed(self, frame, last, q_has, last_pts, lp, t_prep,
+                         prime_chain: bool) -> FusedPending:
+        tk = self.cfg.tracking
+        F = frame.feat_cap
+        scal = np.zeros(16, np.float32)
+        scal[0:4] = frame.q_cw
+        scal[4:7] = frame.t_cw
+        scal[7] = tk.motion_search_radius
+        scal[8] = 5.0 if frame.idx < 2 else tk.local_search_radius
+        dyn = np.zeros((F, fused.DYN_W), np.float32)
+        dyn[:, 0:3] = last_pts
+        dyn[:, 3] = q_has
+        dyn[:, 4] = self._vetted_comp(last.mappoint)
+        dyn[:, 5] = last.mappoint
+        kf_mode = tk.fused_map_refresh == "kf"
+        map_dev, lp = self._cached_map(lp, kf_mode)
+        gmm_tab, scales = self._dev_static()
+        last_dev = self._dev_cur(last)
+        cur_dev = frame._dev_cur = self._upload(self._pack_frame(frame))
+        dyn_dev = self._upload(dyn)
+        scal_dev = self._upload(scal)
+        t_prep.stop()
+        with Timer("track/fused_enqueue"):
+            out = fused.fused_track_step_packed(
+                self.cam, scal_dev, cur_dev, last_dev, dyn_dev, map_dev, gmm_tab, scales,
+                float(self.log_sf), self.num_levels, map_is_stale=kf_mode,
+                **self._anchor_kw())
+        if prime_chain:
+            vq, vt = self.host_vel if self.host_vel is not None else (None, None)
+            vel = np.zeros(8, np.float32)
+            if vq is not None:
+                vel[0:4], vel[4:7], vel[7] = vq, vt, 1.0
+            pose_prev = np.concatenate([last.q_cw, last.t_cw]).astype(np.float32)
+            self._chain = dict(out=out, cur=cur_dev, dyn=dyn_dev, map_tab=map_dev,
+                               vel=self._upload(vel), pose_prev=self._upload(pose_prev))
+        return FusedPending(frame=frame, result=Readback(out), lp=lp, n_lp=len(lp),
+                            q_pred=frame.q_cw.copy(), t_pred=frame.t_cw.copy(),
+                            packed=True)
+
+    def invalidate_chain(self) -> None:
+        """Drop the device-chained state (rewind, synchronous frame)."""
+        self._chain = None
+
+    def fused_dispatch_chained(self, frame: Frame) -> FusedPending:
+        """Dispatch `frame` from the chain state: no read-back of the
+        previous frame; pose prediction, landmark table and temporal
+        points come from the device (fused.fused_track_step_chained). The
+        only per-frame upload is the frame's packed table. Raises if the
+        chain is not primed or there is no device-world mirror."""
+        ch, dw = self._chain, self.dev_world
+        if ch is None or dw is None:
+            raise RuntimeError("the chained dispatch needs a primed chain and the "
+                               "device-world mirror")
+        tk = self.cfg.tracking
+        w = self.world
+        t_prep = Timer("track/chain_prep").start()
+        lp = self.local_points
+        lp = lp[w.pt_valid[lp]] if len(lp) else lp
+        map_dev, lp = self._cached_map(lp[:tk.fused_local_map_cap], True)
+        gmm_tab, scales = self._dev_static()
+        cur_dev = frame._dev_cur = self._upload(self._pack_frame(frame))
+        pt_pos, pt_valid, pt_comp = dw.read_for_tracking()
+        t_prep.stop()
+        with Timer("track/chain_enqueue"):
+            out_ext, dyn_new, vel_new, pose_prev = fused.fused_track_step_chained(
+                self.cam, ch["out"], ch["cur"], ch["dyn"], ch["map_tab"],
+                ch["pose_prev"], ch["vel"], pt_pos, pt_valid, pt_comp,
+                cur_dev, map_dev, gmm_tab, scales, float(self.log_sf), self.num_levels,
+                velocity_ema=float(tk.velocity_ema),
+                velocity_damping=float(tk.velocity_damping),
+                th_depth=float(self.th_depth), temp_cap=int(tk.temporal_points_cap),
+                motion_radius=float(tk.motion_search_radius),
+                local_radius=float(tk.local_search_radius), **self._anchor_kw())
+        self._chain = dict(out=out_ext, cur=cur_dev, dyn=dyn_new, map_tab=map_dev,
+                           vel=vel_new, pose_prev=pose_prev)
+        self.n_chained += 1
+        return FusedPending(frame=frame, result=Readback(out_ext), lp=lp, n_lp=len(lp),
+                            q_pred=None, t_pred=None, packed=True, chained=True)
+
     def fused_complete(self, pend: FusedPending) -> Optional[TrackStat]:
         """Read the dispatched step back and do the host bookkeeping.
         Returns the TrackStat, or None to request the classic fallback
         (too few inliers)."""
         w = self.world
         frame = pend.frame
+        if pend.chained:
+            # the chained dispatch skipped the last-frame prep: run it now,
+            # so last.mappoint holds the temporal points the device made
+            # (fused._chain_prep follows _create_temporal_points' rule)
+            self._update_last_frame()
+            if not self.last_frame.is_keyframe:
+                self._create_temporal_points()
         last = self.last_frame
         lp, n_lp = pend.lp, pend.n_lp
         with Timer("track/fused_fetch"):
-            r = fused.FusedTrackResult(*(x.cpu().numpy() for x in pend.result))
+            if pend.packed:
+                out = pend.result.get()
+                if pend.chained:
+                    # the +7 extension carries the device's pose prediction
+                    pend.q_pred = out[-7:-3].astype(np.float64)
+                    pend.t_pred = out[-3:].astype(np.float64)
+                    out = out[:-7]
+                rq, rt, fp, fl, r_out, n_inl, n_mot, in_view, n_anc = fused.unpack_result(
+                    out, frame.feat_cap, self.cfg.tracking.fused_local_map_cap)
+            else:
+                r = fused.FusedTrackResult(*(x.cpu().numpy() for x in pend.result))
+                rq, rt, fp, fl, r_out = (r.q, r.t, r.feat_point, r.feat_from_local,
+                                         r.is_outlier)
+                n_inl, n_mot, in_view, n_anc = (r.num_inliers, r.n_motion_matches,
+                                                r.map_in_view, r.num_anchors)
         t_book = Timer("track/fused_book").start()
-        if int(r.num_inliers) < self.cfg.tracking.min_matches_track:
+        if int(n_inl) < self.cfg.tracking.min_matches_track:
             frame.mappoint[:] = -1
             t_book.stop()
             return None
-        frame.set_pose(r.q.astype(np.float64), r.t.astype(np.float64))
-        frame.is_outlier = r.is_outlier.copy()
+        frame.set_pose(rq.astype(np.float64), rt.astype(np.float64))
+        frame.is_outlier = r_out.copy()
         frame.mappoint[:] = -1
-        fp, fl = r.feat_point, r.feat_from_local
         m_local = (fp >= 0) & fl
         m_last = (fp >= 0) & ~fl
         if n_lp:
@@ -614,7 +844,7 @@ class Tracker:
         frame.mappoint[m_last] = last.mappoint[fp[m_last]]
 
         if n_lp:
-            in_view = r.map_in_view[:n_lp]
+            in_view = in_view[:n_lp]
             w.pt_num_visible[lp[in_view]] += 1
             w.pt_last_visible_idx[lp[in_view]] = frame.idx
         has = (frame.mappoint >= 0) & frame.valid
@@ -628,8 +858,8 @@ class Tracker:
             (w.pt_n_obs[frame.mappoint[frame.mappoint >= 0]] > 0).sum())
         self.dbg = {
             "path": "fused",
-            "n_motion_match": int(r.n_motion_matches),
-            "n_anchors": int(r.num_anchors),
+            "n_motion_match": int(n_mot),
+            "n_anchors": int(n_anc),
             "q_pred": pend.q_pred,
             "t_pred": pend.t_pred,
         }

@@ -130,3 +130,16 @@ def check(err: int, name: str) -> None:
     """Raise on a non-zero cudaError_t from a launch."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, shape=None) -> None:
+    """Add one to `wrapper.launches` and, where given, the launch's shape
+    to the set `wrapper.shapes` (the tracker and the mapper thread launch
+    the same kernels, so the update takes a lock)."""
+    with _count_lock:
+        wrapper.launches += 1
+        if shape is not None:
+            wrapper.shapes.add(shape)

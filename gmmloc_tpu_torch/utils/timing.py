@@ -7,8 +7,10 @@ mean/min/max/stddev), RAII-style timers, and a table printer. Hierarchy
 by tag convention ("loc/ba"). Device work is made observable by passing
 a `block` callable (torch.cuda.synchronize) to the timer.
 
-The port's own copy of `gmmloc_tpu/utils/timing.py` (numpy only, copied
-unchanged so that the port imports nothing of the JAX package).
+The port's own copy of `gmmloc_tpu/utils/timing.py` (numpy only, so that
+the port imports nothing of the JAX package), with one change: a sample
+is added under the registry's lock, so the tracker and the mapper thread
+can time at once while another thread prints the table.
 """
 
 from __future__ import annotations
@@ -62,6 +64,12 @@ class _Registry:
                 self.accs[tag] = Accumulator()
             return self.accs[tag]
 
+    def add(self, tag: str, v: float) -> None:
+        with self.lock:
+            if tag not in self.accs:
+                self.accs[tag] = Accumulator()
+            self.accs[tag].add(v)
+
     def reset(self) -> None:
         with self.lock:
             self.accs.clear()
@@ -91,7 +99,7 @@ class Timer:
         if self.block is not None:
             self.block()
         dt = time.perf_counter() - self._t0
-        REGISTRY.get(self.tag).add(dt)
+        REGISTRY.add(self.tag, dt)
         self._t0 = None
         return dt
 

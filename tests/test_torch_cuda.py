@@ -332,3 +332,151 @@ def test_pose_kernel_ragged_feature_counts(device, anchored, n):
 @pytest.mark.parametrize("anchored", [False, True])
 def test_pose_kernel_bit_identical_across_launches(device, anchored, n):
     assert _in_child("case_repeatable", anchored=anchored, n=n)["ok"]
+
+
+# ---------------------------------------------------------------------------
+# the production configuration on the card
+# ---------------------------------------------------------------------------
+
+
+def _production_system(device, n_frames, online, **widths):
+    import os
+
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+
+    cfg = slice_run.production_config(online, **widths)
+    gmap, frames, q_wc, t_wc = slice_run.make_inputs(
+        cfg, os.path.join(slice_run.default_fixture_dir(), "card_test_production"),
+        n_frames, n_components=400 if widths else 3300,
+        n_landmarks=4000 if widths else 30000, device=device)
+    return GMMLocSystem(cfg, gmap, device), frames, q_wc, t_wc
+
+
+def test_chained_step_reads_mirror_while_a_sync_runs(device):
+    """The chained step reads the mirror on the tracker's stream while a
+    sync of new point rows runs on a second stream in another thread, as
+    the mapper's does: over 50 repetitions both steps give what the same
+    two steps give one after the other."""
+    import threading
+
+    from gmmloc_tpu_torch.tracking import fused
+
+    system, frames, q_wc, t_wc = _production_system(
+        device, 12, False, feat_cap=256, num_features=240, local_map_cap=1024)
+    for i in range(11):
+        system.step(frames[i], q_wc[i], t_wc[i])
+    trk, dw, w = system.tracker, system.localizer.dev_world, system.world
+    ch = trk._chain
+    assert ch is not None and system._depth == 4
+    cur = trk._upload(trk._pack_frame(frames[11]))
+    gmm_tab, scales = trk._dev_static()
+    tk = system.cfg.tracking
+    dw.sync()
+    ids = np.where(w.pt_valid)[0]
+    base = w.pt_pos[ids].copy()
+
+    def step(view):
+        out, dyn, _, _ = fused.fused_track_step_chained(
+            system.cam, ch["out"], ch["cur"], ch["dyn"], ch["map_tab"], ch["pose_prev"],
+            ch["vel"], *view, cur, ch["map_tab"], gmm_tab, scales, float(trk.log_sf),
+            trk.num_levels, use_anchors=True, velocity_ema=float(tk.velocity_ema),
+            velocity_damping=float(tk.velocity_damping), th_depth=float(trk.th_depth),
+            temp_cap=int(tk.temporal_points_cap))
+        return torch.cat([out, dyn.reshape(-1)])
+
+    def set_rows(shift):
+        w.pt_pos[ids] = base + shift
+        w.dirty_pt.update(ids.tolist())
+        w.map_version += 1
+
+    # one after the other
+    set_rows(0.0)
+    dw.sync()
+    ref0 = step(dw.read_for_tracking())
+    set_rows(0.02)
+    dw.sync()
+    ref1 = step(dw.read_for_tracking())
+    torch.cuda.synchronize()
+    assert not torch.equal(ref0, ref1)
+
+    mapper = torch.cuda.Stream(device)
+    for _ in range(50):
+        set_rows(0.0)
+        dw.sync()
+        torch.cuda.synchronize()
+        out0 = step(dw.read_for_tracking())           # enqueued, still running
+        set_rows(0.02)
+
+        def sync_on_mapper():
+            with torch.cuda.stream(mapper):
+                dw.sync()
+
+        th = threading.Thread(target=sync_on_mapper)
+        th.start()
+        th.join(timeout=60)
+        assert not th.is_alive()
+        out1 = step(dw.read_for_tracking())
+        torch.cuda.synchronize()
+        assert torch.equal(out0, ref0) and torch.equal(out1, ref1)
+
+
+def test_production_online_run_on_card(device):
+    """production_config(online=True) at full width, 40 frames, on the
+    card: no tracking failure, camera-centre error under 5 cm, the mapper
+    drained and joined, the chain and the mirror used."""
+    from gmmloc_tpu_torch.eval import slice_run
+
+    system, frames, q_wc, t_wc = _production_system(device, 40, True)
+    system.online.join_timeout_s = 300.0
+    slice_run.run(system, frames, q_wc, t_wc, device)
+    system.stop()
+    errs = slice_run.pose_errors(frames, t_wc)
+    assert errs.max() < 0.05, errs.max()
+    assert system._depth == 4 and system.tracker.n_chained > 20
+    assert system.online.count_queue() == 0 and system.online._thread is None
+    assert system.world.n_keyframes() >= 2 and system.localizer.dev_world.n_syncs > 0
+
+
+def test_local_ba_graph_replay_equals_eager(device, monkeypatch):
+    """The local BA's LM iterations replayed from a CUDA graph give what
+    the eager iterations give, on the BA windows of a 30-frame production
+    run at full width: the same LM iterations, poses, points and
+    outlier decisions, bit for bit. The solves run in a second thread
+    beside launches of the main thread, as the mapper's do."""
+    import threading
+
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.solver import local_ba
+
+    solve = local_ba.solve_local_ba
+    windows = []
+
+    def record(cam, prob, n_free, **kw):
+        windows.append((cam, prob, n_free, kw))
+        return solve(cam, prob, n_free, **kw)
+
+    monkeypatch.setattr(local_ba, "solve_local_ba", record)
+    system, frames, q_wc, t_wc = _production_system(device, 30, False)
+    slice_run.run(system, frames, q_wc, t_wc, device)
+    assert len(windows) >= 2
+    results = {}
+
+    def mapper():
+        with torch.cuda.stream(torch.cuda.Stream(device)):
+            for i, (cam, prob, n_free, kw) in enumerate(windows[:4]):
+                results[i] = (solve(cam, prob, n_free, **kw),
+                              solve(cam, prob, n_free, cuda_graph=False, **kw))
+        torch.cuda.synchronize()
+
+    th = threading.Thread(target=mapper)
+    th.start()
+    x = torch.zeros(1024, device=device)
+    while th.is_alive():                       # launches beside the captures
+        x = x + 1.0
+    th.join()
+    assert len(results) == min(4, len(windows))
+    for g, e in results.values():
+        assert g.n_iters == e.n_iters and g.n_iters > 2
+        for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
+            assert torch.equal(getattr(g, k), getattr(e, k)), k

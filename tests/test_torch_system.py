@@ -227,15 +227,21 @@ def test_entry_points_default_to_cuda():
         ImageFrontend(slice_run.image_config())
 
 
-def test_system_rejects_unported_options():
+@pytest.mark.parametrize("option", ["fused_kf_assoc", "pose_impl", "relocalization",
+                                    "loop_closing"])
+def test_system_rejects_unported_options(option):
+    """What still raises: the non-fused keyframe association, a pose solver
+    other than "auto", relocalization (a vocabulary) and loop closing."""
     cfg = slice_config()
     gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
-    bad = [
-        cfg.replace(online=True),
-        cfg.replace(loc=dataclasses.replace(cfg.loc, use_device_world=True)),
-        cfg.replace(tracking=dataclasses.replace(cfg.tracking, fused_packed_io=True)),
-        cfg.replace(tracking=dataclasses.replace(cfg.tracking, pose_impl="pallas")),
-    ]
-    for c in bad:
-        with pytest.raises(ValueError):
-            GMMLocSystem(c, gmap, "cpu")
+    kw = {}
+    if option == "fused_kf_assoc":
+        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, fused_kf_assoc=False))
+    elif option == "pose_impl":
+        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pose_impl="pallas"))
+    elif option == "relocalization":
+        kw["vocabulary"] = object()
+    else:
+        cfg = cfg.replace(enable_loop_closing=True)
+    with pytest.raises(ValueError):
+        GMMLocSystem(cfg, gmap, "cpu", **kw)
