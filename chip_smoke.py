@@ -57,7 +57,31 @@ Phases, each of which raises on failure (exit code non-zero):
      rewinds, BA solves and LM iterations and the host timers
      (`track/chain_*`, `loc/*_sync`).
 
-  8. K3 exact against its plain version at every (N, M) the paths
+  8. [reloc]: relocalization on the production feature configuration
+     offline at depth 4, with a vocabulary trained off the clock from the
+     fixture's landmark descriptors (`desc[::4]`, k=10, depth 3, seed 0,
+     as the JAX tests train it; its descent on the card equal to the CPU
+     descent word for word). Two runs (`eval/reloc_run.py`): a blackout
+     (frames 125-130 of a 25 + 200 frame run with every detection
+     dropped) and a kidnap (90 frames mapped, 5 dark frames while the
+     camera is carried back to frame 10, then 40 frames from there). Each
+     must go LOST and recover with no fatal failure, keep the camera
+     centre within 10 cm after the recovery, and launch K1 and K3 inside
+     `relocalize`; prints the lost frames, the recovery frames, the
+     candidates tried and the ms per attempt.
+  9. [loop]: one lap of the room (440 frames; the ellipse closes after
+     about 380) on the same configuration with `enable_loop_closing`. If
+     the JAX package closes a loop on the lap (`tools/torch_loop_reference.py`,
+     CPU, small width) the card run must close one too; max camera-centre
+     error under the larger of 8 cm and the JAX run's + 1 cm; the mirror's
+     pose and point tables equal to the host's after the sync that follows
+     each closure; each closure's pose graph solved twice more on the card
+     with the same result, bit for bit. Then the JAX loop-closing test's
+     revisit world (`reloc_run.revisit_scenario`) closed on the card: K3
+     in `verify`, equal to the CPU's closure within 1e-4 m, the mirror
+     equal after the sync, the graph bit-equal when solved again. Prints
+     the closures, the ms per `close` and the pose graph's ms.
+ 10. K3 exact against its plain version at every (N, M) the paths
      launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
@@ -102,6 +126,18 @@ JAX_IMG_MAX_ERR_M = 0.029363626255594893
 # the slice: 7.22 against 4.04 cm max over 120 frames at feat_cap 256, the
 # port 7.16 against 4.17 (tools/torch_production_reference.py, on the CPU)
 PROD_MAX_ERR_M = 0.08
+
+# [reloc]: the runs of the JAX package's tests/test_relocalize.py on the
+# fixture, and their error gate
+RELOC_DARK = range(125, 131)
+KIDNAP = dict(start=0, mapped=90, black=5, back=10, after=40)
+RELOC_MAX_ERR_M = 0.10
+# [loop]: one lap, and the JAX package's result on it from a CPU run of
+# tools/torch_loop_reference.py (feat_cap 256, 400 components, 4000
+# landmarks): loops closed and max camera-centre error
+LOOP_FRAMES = 440
+JAX_LOOP_CLOSURES = 0
+JAX_LOOP_MAX_ERR_M = 0.08382604801750247
 
 def k3_shapes():
     """K3's shapes on the paths: frame x local map (1280^2), the widened
@@ -471,6 +507,261 @@ def run_production_phase(device, card, feature_inputs, img_inputs):
     return outs
 
 
+class _RelocLog:
+    """Wraps a system's `relocalize`: per call the frame, the outcome, the
+    host ms (the call reads its results back, so the clock holds the
+    device work), the candidates tried and the K1 and K3 launches made
+    inside it."""
+
+    def __init__(self, system):
+        self.calls = []
+        rel = system.relocalizer
+        inner = rel.relocalize
+
+        def relocalize(frame):
+            k = wrappers()
+            l1, l3 = k["K1"].launches, k["K3"].launches
+            t0 = time.perf_counter()
+            ok = inner(frame)
+            self.calls.append(dict(
+                frame=int(frame.idx), ok=bool(ok), ms=(time.perf_counter() - t0) * 1e3,
+                tried=sum(1 for st in rel.last_stats if isinstance(st[0], int)),
+                K1=k["K1"].launches - l1, K3=k["K3"].launches - l3))
+            return ok
+
+        rel.relocalize = relocalize
+
+
+def run_reloc_phase(device, card) -> dict:
+    """[reloc]: the blackout and the kidnap at depth 4. Returns {run: out}."""
+    import numpy as np
+
+    from gmmloc_tpu_torch.eval import reloc_run, slice_run
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+    from gmmloc_tpu_torch.vocab.bow import Vocabulary
+
+    t0 = time.perf_counter()
+    cfg = slice_run.production_config(False)
+    n = WARMUP + MEASURED
+    gmap, fe, ts, q_wc, t_wc = slice_run.make_world(
+        cfg, os.path.join(slice_run.default_fixture_dir(), "reloc"), n,
+        n_components=N_COMPONENTS, n_landmarks=N_LANDMARKS, device=device)
+    voc = Vocabulary.train(fe.world.desc[::4], k=10, depth=3, seed=0, device=device)
+    runs = {
+        "reloc_blackout": reloc_run.blackout_frames(fe, ts, q_wc, t_wc, 0, n, RELOC_DARK),
+        "reloc_kidnap": reloc_run.kidnap_frames(fe, ts, q_wc, t_wc, **KIDNAP),
+    }
+    probe = np.concatenate([fe.world.desc] + [f.desc for _, f in runs["reloc_blackout"]])
+    words = voc.transform_words(probe)
+    if not np.array_equal(words, voc.to("cpu").transform_words(probe)):
+        raise RuntimeError("[reloc] the vocabulary's descent on the card differs from "
+                           "the CPU's")
+    log(f"[reloc] set-up {time.perf_counter() - t0:.1f}s: vocabulary of {voc.n_words} "
+        f"words (k=10, depth 3) from {len(fe.world.desc[::4])} landmark descriptors; "
+        f"descent on the card equals the CPU's on {len(probe)} descriptors, on {card}")
+    outs = {}
+    for name, frames in runs.items():
+        system = GMMLocSystem(cfg, gmap, device, vocabulary=voc)
+        rlog = _RelocLog(system)
+        slice_run.timing_table(reset=True)
+        reset_launches()
+        ran = reloc_run.drive(system, frames, q_wc, t_wc)
+        launches = read_launches()
+        log(f"[{name}] host timers on {card}:\n{slice_run.timing_table()}")
+        r = reloc_run.summary(system, frames, t_wc)
+        calls = rlog.calls
+        tried = sum(c["tried"] for c in calls)
+        out = dict(frames=len(frames), depth=system._depth, lost_frames=r["untracked"],
+                   n_lost=r["n_lost"], recovery_frames=r["recovery_frames"],
+                   relocalize_calls=len(calls), candidates_tried=tried,
+                   ms_per_call=float(np.mean([c["ms"] for c in calls])) if calls else None,
+                   ms_per_attempt=sum(c["ms"] for c in calls) / tried if tried else None,
+                   reloc_launches=dict(K1=sum(c["K1"] for c in calls),
+                                       K3=sum(c["K3"] for c in calls)),
+                   max_err_after_m=float(r["errors"].max()) if len(r["errors"]) else None,
+                   tracked_after=len(r["errors"]), keyframes=system.world.n_keyframes(),
+                   n_rewinds=system.n_rewinds, fps=len(frames) / float(ran["step_s"].sum()),
+                   launches=launches)
+        log(f"[{name}] {json.dumps(out)} on {card}")
+        if system._depth != 4:
+            raise RuntimeError(f"[{name}] ran at depth {system._depth}")
+        if r["n_lost"] <= 0 or r["lost"] or not r["recovery_frames"]:
+            raise RuntimeError(f"[{name}] lost {r['n_lost']} frames, recovered at "
+                               f"{r['recovery_frames']}, lost at the end: {r['lost']}")
+        if len(r["errors"]) < 10 or r["errors"].max() >= RELOC_MAX_ERR_M:
+            raise RuntimeError(f"[{name}] {len(r['errors'])} frames tracked after the "
+                               f"recovery, max error {out['max_err_after_m']} m")
+        if min(out["reloc_launches"].values()) <= 0:
+            raise RuntimeError(f"[{name}] relocalize launched {out['reloc_launches']}")
+        log(f"[result] {name}: lost frames {r['untracked']}, recovered at "
+            f"{r['recovery_frames']}, {tried} candidates tried in {len(calls)} calls, "
+            f"{out['ms_per_attempt']:.2f} ms per attempt, max error after the recovery "
+            f"{out['max_err_after_m'] * 100:.2f} cm on {card}")
+        outs[name] = out
+    return outs
+
+
+def loop_gate() -> float:
+    if JAX_LOOP_MAX_ERR_M is None:
+        return PROD_MAX_ERR_M
+    return max(PROD_MAX_ERR_M, JAX_LOOP_MAX_ERR_M + 0.01)
+
+
+def run_revisit(device, card) -> dict:
+    """The JAX package's loop-closing test world (eval/reloc_run.py
+    revisit_scenario) on the card: `close` must close the loop (K3 in
+    `verify`, the pose graph on the card), match the same closure on the
+    CPU within 1e-4 m, leave the mirror equal to the host after the next
+    sync, and give the same graph result when solved twice more."""
+    import dataclasses
+
+    import numpy as np
+
+    from gmmloc_tpu_torch.config import euroc_v1_config
+    from gmmloc_tpu_torch.eval import reloc_run
+    from gmmloc_tpu_torch.mapping.device_world import DeviceWorld
+    from gmmloc_tpu_torch.solver import pose_graph
+
+    cfg = euroc_v1_config()
+    cfg = cfg.replace(caps=dataclasses.replace(cfg.caps, max_keyframes=16, max_points=256,
+                                               max_obs_per_point=8),
+                      frame=dataclasses.replace(cfg.frame, feat_cap=64))
+    ref_w, _, ref_lc, kf_re, kf0 = reloc_run.revisit_scenario(cfg, "cpu")
+    w, _, lc, _, _ = reloc_run.revisit_scenario(cfg, device)
+    mirror = DeviceWorld(w, device)
+    mirror.sync()
+    t_before = w.kf_t[kf_re].copy()
+    l3 = wrappers()["K3"].launches
+    t0 = time.perf_counter()
+    ok = lc.close(kf_re)
+    close_ms = (time.perf_counter() - t0) * 1e3
+    k3 = wrappers()["K3"].launches - l3
+    if not (ok and ref_lc.close(kf_re) and lc.closures == ref_lc.closures == [(kf_re, kf0)]):
+        raise RuntimeError(f"[loop] the revisit was not closed: {lc.closures}")
+    mirror.sync()
+    valid, pts = np.where(w.kf_valid)[0], np.where(w.pt_valid)[0]
+    mirror_ok = (np.array_equal(mirror.kf_q.cpu().numpy()[valid], w.kf_q[valid].astype(np.float32))
+                 and np.array_equal(mirror.kf_t.cpu().numpy()[valid],
+                                    w.kf_t[valid].astype(np.float32))
+                 and np.array_equal(mirror.pt_pos.cpu().numpy()[pts],
+                                    w.pt_pos[pts].astype(np.float32)))
+    g, q, t, cost = lc.graphs[0]
+    same = all(all(np.array_equal(a.cpu().numpy(), b) for a, b in zip(
+        pose_graph.optimize_pose_graph(g, iters=15, device=device), (q, t, cost)))
+        for _ in range(2))
+    out = dict(closed=lc.closures, close_ms=close_ms, K3_in_close=k3,
+               moved_m=float(np.linalg.norm(w.kf_t[kf_re] - t_before)),
+               kf_t_vs_cpu_m=float(np.abs(w.kf_t[valid] - ref_w.kf_t[valid]).max()),
+               pt_pos_vs_cpu_m=float(np.abs(w.pt_pos[pts] - ref_w.pt_pos[pts]).max()),
+               mirror_equal=mirror_ok, pose_graph_repeatable=same)
+    log(f"[loop] revisit world {json.dumps(out)} on {card}")
+    if (k3 <= 0 or out["moved_m"] <= 0.1 or out["kf_t_vs_cpu_m"] >= 1e-4
+            or out["pt_pos_vs_cpu_m"] >= 1e-4 or not mirror_ok or not same):
+        raise RuntimeError(f"[loop] revisit world: {out}")
+    return out
+
+
+def run_loop_phase(device, card) -> dict:
+    """[loop]: one lap with loop closing at depth 4."""
+    import numpy as np
+    import torch
+
+    from gmmloc_tpu_torch.eval import reloc_run, slice_run
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+    from gmmloc_tpu_torch.solver import pose_graph
+    from gmmloc_tpu_torch.vocab.bow import Vocabulary
+
+    t0 = time.perf_counter()
+    cfg = slice_run.production_config(False).replace(enable_loop_closing=True)
+    gmap, fe, ts, q_wc, t_wc = slice_run.make_world(
+        cfg, os.path.join(slice_run.default_fixture_dir(), "loop"), LOOP_FRAMES,
+        n_components=N_COMPONENTS, n_landmarks=N_LANDMARKS, device=device)
+    voc = Vocabulary.train(fe.world.desc[::4], k=10, depth=3, seed=0, device=device)
+    frames = reloc_run.blackout_frames(fe, ts, q_wc, t_wc, 0, LOOP_FRAMES, ())
+    log(f"[loop] set-up {time.perf_counter() - t0:.1f}s on {card}")
+    system = GMMLocSystem(cfg, gmap, device, vocabulary=voc)
+    w, lc, mirror = system.world, system.loop_closer, system.localizer.dev_world
+    closes, syncs = [], []
+    state = dict(after_closure=False)
+    inner_close, inner_sync = lc.close, mirror.sync
+
+    def close(kf):
+        t1 = time.perf_counter()
+        ok = inner_close(kf)
+        closes.append(((time.perf_counter() - t1) * 1e3, ok))
+        state["after_closure"] = state["after_closure"] or ok
+        return ok
+
+    def sync():
+        inner_sync()
+        if state["after_closure"]:
+            # the first sync after a closure: the mirror holds the host's
+            # moved poses and points
+            state["after_closure"] = False
+            valid = np.where(w.kf_valid)[0]
+            pts = np.where(w.pt_valid)[0]
+            syncs.append(bool(
+                np.array_equal(mirror.kf_q.cpu().numpy()[valid], w.kf_q[valid].astype(np.float32))
+                and np.array_equal(mirror.kf_t.cpu().numpy()[valid],
+                                   w.kf_t[valid].astype(np.float32))
+                and np.array_equal(mirror.pt_pos.cpu().numpy()[pts],
+                                   w.pt_pos[pts].astype(np.float32))))
+
+    lc.close, mirror.sync = close, sync
+    slice_run.timing_table(reset=True)
+    reset_launches()
+    ran = reloc_run.drive(system, frames, q_wc, t_wc)
+    if state["after_closure"]:
+        sync()                  # no keyframe came after the last closure
+    launches = read_launches()
+    log(f"[loop] host timers on {card}:\n{slice_run.timing_table()}")
+    r = reloc_run.summary(system, frames, t_wc)
+    # each closure's graph again, twice, on the card: identical poses
+    same, pgo_ms = True, []
+    for g, q, t, cost in lc.graphs:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = [x.cpu().numpy() for x in pose_graph.optimize_pose_graph(
+                g, iters=15, device=device)]
+            pgo_ms.append((time.perf_counter() - t1) * 1e3)
+            same = same and all(np.array_equal(a, b) for a, b in zip(out, (q, t, cost)))
+    errs = r["errors_tracked"]
+    closing = [ms for ms, ok in closes if ok]
+    out = dict(frames=len(frames), depth=system._depth,
+               closures=[(int(k), int(c)) for k, c in lc.closures],
+               closure_frames=[(int(w.kf_frame_idx[k]), int(w.kf_frame_idx[c]))
+                               for k, c in lc.closures],
+               close_calls=len(closes),
+               close_ms_mean=float(np.mean([ms for ms, _ in closes])) if closes else None,
+               closing_close_ms=closing,
+               pose_graph_nodes=[int(g.q.shape[0]) for g, *_ in lc.graphs],
+               pose_graph_edges=[int(g.edge_i.shape[0]) for g, *_ in lc.graphs],
+               pose_graph_ms=pgo_ms, pose_graph_repeatable=same,
+               mirror_equal_after_closure=syncs,
+               max_err_m=float(errs.max()), mean_err_m=float(errs.mean()),
+               err_gate_m=loop_gate(), untracked=len(r["untracked"]),
+               n_lost=r["n_lost"], keyframes=w.n_keyframes(),
+               jax_closures=JAX_LOOP_CLOSURES,
+               fps=len(frames) / float(ran["step_s"].sum()), launches=launches)
+    log(f"[loop] {json.dumps(out)} on {card}")
+    if JAX_LOOP_CLOSURES and not lc.closures:
+        raise RuntimeError(f"[loop] the JAX package closes {JAX_LOOP_CLOSURES} loop(s) "
+                           "on the lap, the port none")
+    if errs.max() >= loop_gate():
+        raise RuntimeError(f"[loop] max error {errs.max():.4f} m >= {loop_gate()} m")
+    if len(syncs) != len(lc.closures) or not all(syncs):
+        raise RuntimeError(f"[loop] mirror after the closures' syncs: {syncs} for "
+                           f"{len(lc.closures)} closures")
+    if not same:
+        raise RuntimeError("[loop] the pose graph gave another result when solved again")
+    out["revisit"] = run_revisit(device, card)
+    log(f"[result] loop: {len(lc.closures)} closures {out['closure_frames']} (frame pairs), "
+        f"close {out['close_ms_mean']:.2f} ms per call, closing calls {closing} ms, pose "
+        f"graph {pgo_ms} ms, max error {errs.max() * 100:.2f} cm on {card}")
+    return out
+
+
 def check_path_shapes(device, card) -> dict:
     """K3 exact against its plain version at every (N, M) the paths
     launched it at (the triangulation searches' N1 x T*N2 for each
@@ -555,6 +846,10 @@ def main() -> int:
         f"on {card}")
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of the slice paths")
     prod = run_production_phase(device, card, feature_inputs, img_inputs)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [production]")
+    prod.update(run_reloc_phase(device, card))
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [reloc]")
+    prod["loop"] = run_loop_phase(device, card)
     k3_paths = check_path_shapes(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)

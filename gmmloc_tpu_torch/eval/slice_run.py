@@ -79,12 +79,12 @@ def production_config(online: bool, feat_cap: int | None = None,
                        frame=dataclasses.replace(cfg.frame, **fr), online=online)
 
 
-def make_inputs(cfg: SystemConfig, out_dir: str, n_frames: int,
-                n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
-                device="cuda"):
-    """Write the room fixture under out_dir, load the map on `device` and
-    generate every frame up front (the harness stays off the clock).
-    Returns (gmap, frames, q_wc, t_wc)."""
+def make_world(cfg: SystemConfig, out_dir: str, n_frames: int,
+               n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
+               device="cuda"):
+    """Write the room fixture under out_dir (a trajectory of n_frames + 50
+    frames) and load the map on `device`. Returns (gmap, the synthetic
+    front end, ts, q_wc, t_wc)."""
     gmm_path, gt_path = room_fixture.write_room_fixture(
         out_dir, n_components=n_components, n_frames=n_frames + 50, seed=seed)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
@@ -94,6 +94,16 @@ def make_inputs(cfg: SystemConfig, out_dir: str, n_frames: int,
                         pad_to=cfg.caps.gmm_components_pad,
                         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
                         neighbor_cap=cfg.gmm.neighbor_cap)
+    return gmap, fe, ts, q_wc, t_wc
+
+
+def make_inputs(cfg: SystemConfig, out_dir: str, n_frames: int,
+                n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
+                device="cuda"):
+    """`make_world`, then every frame generated up front (the harness
+    stays off the clock). Returns (gmap, frames, q_wc, t_wc)."""
+    gmap, fe, ts, q_wc, t_wc = make_world(cfg, out_dir, n_frames, n_components,
+                                          n_landmarks, seed, device)
     frames = [fe.make_frame(i, ts[i], q_wc[i], t_wc[i]) for i in range(n_frames)]
     return gmap, frames, q_wc[:n_frames], t_wc[:n_frames]
 

@@ -834,7 +834,8 @@ class Localization:
             prior_trans_info=1.0 / lc.prior_sigma_trans ** 2,
             iters1=lc.ba_iters_stage1, iters2=lc.ba_iters_stage2,
             iters3=lc.ba_iters_stage3, term_gain=lc.ba_term_gain,
-            schur_impl=lc.ba_schur_impl, linear_solver=lc.ba_linear_solver)
+            schur_impl=lc.ba_schur_impl, linear_solver=lc.ba_linear_solver,
+            cg_iters=lc.ba_cg_iters)
 
     def _record_ba(self, L, P, n_local, n_fixed, n_obs_pt, dropped, kf0) -> None:
         self.ba_stats.append({

@@ -17,9 +17,18 @@ PyTorch port of `gmmloc_tpu/pipeline/system.py` (ref gmmloc.cpp spin
     pose) re-runs the frames still in flight synchronously.
   - `flush` drains every frame in flight; `stop` also drains and joins
     the mapper thread.
+  - With a vocabulary (`vocabulary=`, `enable_relocalization`), a frame
+    whose track fails puts the system in the LOST state instead of ending
+    the run: it keeps consuming frames synchronously and tries BoW
+    relocalization on each (`tracking/relocalize.py`). With
+    `enable_loop_closing` as well, each new keyframe is checked for a loop
+    after its mapping (`mapping/loop_closing.py`).
+  - `fused_kf_assoc=False` selects the host-orchestrated keyframe
+    association (`GMMAssociator.associate_keyframe`).
 
-Not ported (they raise): the non-fused keyframe association,
-relocalization and loop closing.
+Still raising: `ba_schur_impl` "flat" or "blockdiag" (the system stages
+the local BA in bfloat16, and their rounding is not ported) and a
+`pose_impl` other than "auto" (the tracker).
 """
 
 from __future__ import annotations
@@ -42,7 +51,10 @@ from ..geometry import camera as cam_mod
 from ..gmm import mixture
 from ..mapping.association import GMMAssociator
 from ..mapping.localization import Localization
+from ..mapping.loop_closing import LoopCloser
 from ..mapping.online import OnlineLocalization
+from ..solver.local_ba import check_schur_impl
+from ..tracking.relocalize import Relocalizer
 from ..tracking.tracker import Tracker, TrackStat
 
 
@@ -57,10 +69,8 @@ def set_numerics() -> None:
 class GMMLocSystem:
     def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device="cuda",
                  vocabulary=None):
-        if not cfg.loc.fused_kf_assoc:
-            raise ValueError("only the fused keyframe association is ported")
-        if vocabulary is not None or cfg.enable_loop_closing:
-            raise ValueError("relocalization and loop closing are not ported")
+        # the local BA stages in bfloat16 (solve_local_ba's default)
+        check_schur_impl(cfg.loc.ba_schur_impl, use_bf16=True)
         set_numerics()
         self.cfg = cfg
         self.device = resolve(device)
@@ -72,6 +82,16 @@ class GMMLocSystem:
                                gmm_views=mixture.host_view(gmap))
         self.localizer = Localization(cfg, self.cam, self.world, self.assoc,
                                       self.device)
+        self.relocalizer = None
+        self.loop_closer = None
+        if vocabulary is not None and cfg.enable_relocalization:
+            # the vocabulary's descent moves to the system's device
+            self.relocalizer = Relocalizer(
+                cfg, self.cam, self.world, vocabulary,
+                gmm_views=mixture.host_view(gmap), gmap=gmap, device=self.device)
+            if cfg.enable_loop_closing:
+                self.loop_closer = LoopCloser(cfg, self.world, self.relocalizer.db,
+                                              device=self.device)
         self.initialized = False
         self._pending = None            # the in-flight frame at depth 1
         self._pendq = deque()           # the in-flight frames at depth > 1
@@ -99,7 +119,11 @@ class GMMLocSystem:
         self.n_tracked = 0
         self.vel_q: Optional[np.ndarray] = None
         self.vel_t: Optional[np.ndarray] = None
-        self.track_failed = False
+        self.track_failed = False   # fatal: no recovery path available
+        self.lost = False           # recoverable: awaiting relocalization
+        self.n_lost = 0             # lifetime count of lost frames
+        # frame indices where relocalization re-anchored the run
+        self.recovery_frames: list = []
         # chained-pipeline health counters
         self.n_primes = 0
         self.n_rewinds = 0
@@ -176,9 +200,14 @@ class GMMLocSystem:
         p = frame.mappoint[idx]
         ok = self.world.pt_valid[p]
         self.world.kf_obs_point[kf, idx[ok]] = p[ok]
-        self.assoc.associate_and_check_keyframe(self.world, kf)
+        if self.cfg.loc.fused_kf_assoc:
+            self.assoc.associate_and_check_keyframe(self.world, kf)
+        else:
+            self.assoc.associate_keyframe(self.world, kf)
         self.assoc.create_map_points_from_stereo(self.world, frame, kf,
                                                  check_depth=not is_first)
+        if self.relocalizer is not None:
+            self.relocalizer.add_keyframe(kf)
         return kf
 
     def need_new_keyframe(self, stat: TrackStat) -> bool:
@@ -219,6 +248,23 @@ class GMMLocSystem:
 
     # ------------------------------------------------------------------
 
+    def _recover(self, frame: Frame) -> bool:
+        """Relocalize, then reset the motion model and the tracker state."""
+        with Timer("reloc/relocalize"):
+            ok = self.relocalizer.relocalize(frame)
+        if not ok:
+            return False
+        self.recovery_frames.append(int(frame.idx))
+        self.tracker.last_frame = frame
+        self.tracker.ref_keyframe = frame.ref_kf
+        self.tracker.temp_points.clear()
+        # break the constant-velocity chain across the gap
+        self.last_frame = None
+        self.curr_frame = frame
+        self.vel_q = self.vel_t = None
+        self.lost = False
+        return True
+
     def step(self, frame: Frame, gt_q_wc=None, gt_t_wc=None) -> Optional[TrackStat]:
         """One iteration of the main loop (gmmloc.cpp:128-195). In
         pipelined mode the returned stat belongs to the previous frame
@@ -234,7 +280,8 @@ class GMMLocSystem:
         stat_prev = self.drain()
         if self.track_failed:
             return stat_prev
-        if not self.initialized:
+        if self.lost or not self.initialized:
+            # lost recovery and bootstrap run synchronously
             return self._step_sync(frame, gt_q_wc, gt_t_wc)
         self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
         pend = self.tracker.fused_dispatch(frame)
@@ -257,15 +304,18 @@ class GMMLocSystem:
             stat_prev = self._drain_one()
             if self.track_failed:
                 return stat_prev
-        if not self.initialized:
+        if self.lost or not self.initialized:
             self._drain_all()
+            if self.track_failed:
+                return stat_prev
             return self._step_sync(frame, gt_q_wc, gt_t_wc)
         if self.tracker._chain is None or not self._pendq:
             # prime: the previous frame must be drained, so the host can
             # build the first link's inputs itself
             st = self._drain_all()
             stat_prev = st if st is not None else stat_prev
-            if self.track_failed:
+            if self.track_failed or self.lost or not self.initialized:
+                # as the JAX package: this frame is not tracked
                 return stat_prev
             self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
             self.tracker.host_vel = (self.vel_q, self.vel_t)
@@ -296,9 +346,9 @@ class GMMLocSystem:
             return self._rewind_rest(st)
         st = self._track_and_map(pend.frame, pre_stat=stat)
         self._update_host_vel()
-        if self.track_failed or self.tracker.dbg.get("coasted"):
-            # a coasted pose replaced the solved one the device chain
-            # continued from
+        if self.track_failed or self.lost or self.tracker.dbg.get("coasted"):
+            # a loss, or a coasted pose that replaced the solved one the
+            # device chain continued from
             return self._rewind_rest(st)
         return st
 
@@ -364,6 +414,14 @@ class GMMLocSystem:
             self.online.stop()
 
     def _step_sync(self, frame: Frame, gt_q_wc=None, gt_t_wc=None) -> TrackStat:
+        if self.lost:
+            # LOST: keep consuming frames and retry place recognition on
+            # each (the reference terminates here, gmmloc.cpp:157-159)
+            self.n_lost += 1
+            if self._recover(frame):
+                self.world.update_frame_info(frame)
+                return TrackStat(res=True, num_match_inliers=30, ratio_map=0.3)
+            return TrackStat(res=False)
         self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
         if not self.initialized:
             kf = self.process_keyframe(frame, is_first=True)
@@ -386,6 +444,15 @@ class GMMLocSystem:
                         else self.tracker.track(frame))
         else:
             stat = pre_stat
+        if not stat.res and self.relocalizer is not None:
+            # relocalize instead of terminating (the reference ends the run
+            # here, gmmloc.cpp:157-159)
+            if self._recover(frame):
+                stat = TrackStat(res=True, num_match_inliers=30, ratio_map=0.3)
+            else:
+                self.lost = True
+                self.n_lost += 1
+                return stat
         if not stat.res:
             self.track_failed = True   # the reference terminates here
             return stat
@@ -394,6 +461,9 @@ class GMMLocSystem:
                 kf = self.process_keyframe(frame)
             self.curr_keyframe = kf
             self._map_keyframe(kf)
+            if self.loop_closer is not None and self.world.kf_valid[kf]:
+                with Timer("loop/close"):
+                    self.loop_closer.close(kf)
         self.n_tracked += 1
         if frame.ref_kf < 0:
             frame.ref_kf = self.tracker.ref_keyframe

@@ -17,9 +17,14 @@ One Schur path: points are eliminated per point (dense 3x3), the camera
 blocks are block-diagonal sums over observations (one-hot contractions,
 no scatters), the reduced (6L x 6L) system is solved by LU. The JAX
 package's "flatpm", "flat" and "blockdiag" are TPU layouts of this same
-math and select this path. The residual/Jacobian products at the
-accepted state are carried, so one LM iteration makes one pass at the
+math and select this path at float32. The residual/Jacobian products at
+the accepted state are carried, so one LM iteration makes one pass at the
 proposed state, whose chi2 is also the accept-test cost.
+
+`linear_solver="cg"` solves the reduced system by a fixed-count
+Jacobi-preconditioned CG, as the JAX package does on its "flat" and
+"blockdiag" paths. Its "flatpm" path ignores the option and runs LU, so
+"cg" with "flatpm" runs LU here too.
 
 With `use_bf16` (the default, as in the JAX package) the Hessian products
 are staged in bfloat16 where the JAX "flatpm" path holds bfloat16 values:
@@ -31,7 +36,9 @@ H_pp and b_p row sums, and the weighted residual that b_c reads. Each
 rounding goes through `torch.bfloat16` and back; every reduction over
 observations and everything after it is float32 (a product of two
 bfloat16 values is exact in float32). chi2 and the LM accept cost are
-exact float32.
+exact float32. The JAX "flat" and "blockdiag" paths round at other
+points; their bfloat16 staging is not ported, so "flat" or "blockdiag"
+with `use_bf16` raises (`check_schur_impl`).
 """
 
 from __future__ import annotations
@@ -53,6 +60,19 @@ STR_DEG = 1      # degenerate component -> 1-D point-to-plane edge
 STR_NONDEG = 2   # full component -> 3-D sqrt-info whitened edge
 
 SCHUR_IMPLS = ("flatpm", "flat", "blockdiag")
+LINEAR_SOLVERS = ("lu", "cg")
+
+
+def check_schur_impl(schur_impl: str, use_bf16: bool) -> None:
+    """Raise on a Schur layout the port does not run: an unknown name, or
+    "flat"/"blockdiag" with bfloat16 staging, whose rounding points
+    differ from "flatpm"'s and are not ported (ROADMAP queue 3 p)."""
+    if schur_impl not in SCHUR_IMPLS:
+        raise ValueError(f"unknown ba_schur_impl {schur_impl!r}; one of {SCHUR_IMPLS}")
+    if use_bf16 and schur_impl != "flatpm":
+        raise ValueError(
+            f"ba_schur_impl {schur_impl!r} with bfloat16 staging is not ported "
+            "(its rounding points differ from 'flatpm'; ROADMAP queue 3 p)")
 
 
 class BAProblem(NamedTuple):
@@ -181,6 +201,32 @@ def _prior_terms(prob: BAProblem, cam_q, cam_t, info):
     return H, b
 
 
+def _pcg_solve(S, b, iters: int):
+    """Jacobi-preconditioned CG on the reduced camera system, a fixed
+    `iters` steps with the JAX package's 1e-12 and 1e-30 guards. LM
+    accepts an inexact step (the accept test uses the exact cost). No
+    host read and no host branch: capturable in a CUDA graph."""
+    d = torch.diagonal(S)
+    Minv = 1.0 / torch.where(torch.abs(d) < 1e-12, 1.0, d)
+    x = torch.zeros_like(b)
+    r = b
+    z = Minv * r
+    p = z
+    rz = torch.dot(r, z)
+    for _ in range(iters):
+        Sp = S @ p
+        denom = torch.dot(p, Sp)
+        alpha = torch.where(torch.abs(denom) < 1e-30, 0.0, rz / denom)
+        x = x + alpha * p
+        r = r - alpha * Sp
+        z = Minv * r
+        rz_new = torch.dot(r, z)
+        beta = torch.where(torch.abs(rz) < 1e-30, 0.0, rz_new / rz)
+        p = z + beta * p
+        rz = rz_new
+    return x
+
+
 def solve_local_ba(
     cam,
     prob: BAProblem,
@@ -196,6 +242,7 @@ def solve_local_ba(
     use_bf16: bool = True,
     schur_impl: str = "flatpm",
     linear_solver: str = "lu",
+    cg_iters: int = 48,
     cuda_graph: bool = True,
 ) -> BAResult:
     """Staged Schur-complement LM over a fixed-capacity window. Each stage
@@ -211,11 +258,12 @@ def solve_local_ba(
     beside the mapper makes several times dearer (tools/gil_probe.py).
     The replay runs the captured kernels on the same values, so the
     stages take the same steps."""
-    if schur_impl not in SCHUR_IMPLS:
-        raise ValueError(f"unknown ba_schur_impl {schur_impl!r}; one of {SCHUR_IMPLS}")
-    if linear_solver != "lu":
-        raise ValueError(
-            f"ba_linear_solver {linear_solver!r} is not ported; only 'lu' is")
+    check_schur_impl(schur_impl, use_bf16)
+    if linear_solver not in LINEAR_SOLVERS:
+        raise ValueError(f"unknown ba_linear_solver {linear_solver!r}; one of "
+                         f"{LINEAR_SOLVERS}")
+    # the JAX "flatpm" path takes linear_solver and solves by LU all the same
+    use_cg = linear_solver == "cg" and schur_impl != "flatpm"
     L = n_free
     P, MO = prob.obs_cam.shape
     C = prob.cam_q.shape[0]
@@ -300,8 +348,11 @@ def solve_local_ba(
         b_red = b_c.reshape(-1) - torch.einsum("pcj,pj->c", T, b_p)
         S = torch.where(fixed_rows, eye6L, S)
         b_flat = torch.where(fix6, 0.0, b_red)
-        # solve_ex: no host check of the pivots (a graph cannot hold one)
-        dc = -torch.linalg.solve_ex(S, b_flat)[0].reshape(L, 6)
+        if use_cg:
+            dc = -_pcg_solve(S, b_flat, cg_iters).reshape(L, 6)
+        else:
+            # solve_ex: no host check of the pivots (a graph cannot hold one)
+            dc = -torch.linalg.solve_ex(S, b_flat)[0].reshape(L, 6)
         dc = torch.where(fm[:, None], dc, 0.0)
         rhs_p = b_p + torch.einsum("pcj,c->pj", U, dc.reshape(-1))
         dp = -torch.einsum("pij,pj->pi", Hpp_inv, rhs_p)

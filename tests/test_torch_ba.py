@@ -230,12 +230,79 @@ def test_local_ba_bf16_is_the_default():
 
 
 def test_local_ba_rejects_unported_variants():
+    """An unknown layout or solver raises, and so do "flat" and "blockdiag"
+    with bfloat16 staging, whose rounding points are not ported (ROADMAP
+    queue 3 p); at float32 they run."""
     _, tc = _cams()
     prob = tba.BAProblem(**_as("torch", ba_problem(tc, 0, P=16)))
     with pytest.raises(ValueError):
         tba.solve_local_ba(tc, prob, n_free=4, schur_impl="onehot")
     with pytest.raises(ValueError):
-        tba.solve_local_ba(tc, prob, n_free=4, linear_solver="cg")
+        tba.solve_local_ba(tc, prob, n_free=4, linear_solver="qr")
+    for impl in ("flat", "blockdiag"):
+        with pytest.raises(ValueError, match="queue 3 p"):
+            tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl)
+        with pytest.raises(ValueError, match="queue 3 p"):
+            tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl, linear_solver="cg")
+        res = tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl, use_bf16=False,
+                                 iters1=1, iters2=1, iters3=1)
+        assert torch.isfinite(res.cost)
+
+
+@pytest.mark.parametrize("seed", [1, 2, 4])
+def test_local_ba_cg_matches_reference(seed):
+    """"flat" with the Jacobi-preconditioned CG (48 steps) at float32
+    against the JAX package's "flat" + "cg", at the gates of
+    test_local_ba_matches_reference."""
+    jc, tc = _cams()
+    d = ba_problem(tc, seed)
+    ref = jba.solve_local_ba(jc, jba.BAProblem(**_as("jax", d)), use_bf16=False,
+                             schur_impl="flat", linear_solver="cg", **BA_ITERS)
+    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), use_bf16=False,
+                             schur_impl="flat", linear_solver="cg", **BA_ITERS)
+    rc, oc = float(ref.cost), float(out.cost)
+    assert abs(rc - oc) <= 1e-4 * abs(rc), (rc, oc)
+    np.testing.assert_array_equal(np.asarray(ref.obs_bad), out.obs_bad.numpy())
+    np.testing.assert_array_equal(np.asarray(ref.str_drop), out.str_drop.numpy())
+    np.testing.assert_allclose(np.asarray(ref.cam_t), out.cam_t.numpy(), atol=1e-4)
+    kept = ((~out.obs_bad.numpy()) & d["obs_valid"]).sum(1) >= 2
+    np.testing.assert_allclose(np.asarray(ref.pts)[kept], out.pts.numpy()[kept], atol=2e-3)
+    lu = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), use_bf16=False,
+                            schur_impl="flat", **BA_ITERS)
+    assert not torch.equal(lu.cam_t, out.cam_t)      # the CG ran, not LU
+
+
+@pytest.mark.parametrize("use_bf16", [False, True])
+def test_local_ba_cg_with_flatpm_is_lu(use_bf16):
+    """The JAX "flatpm" path takes linear_solver and solves by LU all the
+    same; so does the port, bit for bit."""
+    _, tc = _cams()
+    prob = tba.BAProblem(**_as("torch", ba_problem(tc, 1)))
+    a = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, linear_solver="lu", **BA_ITERS)
+    b = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, linear_solver="cg", **BA_ITERS)
+    for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert a.n_iters == b.n_iters
+
+
+def test_pcg_solve_matches_reference():
+    """_pcg_solve against the JAX package's on a reduced-system-like SPD
+    matrix with fixed (identity) rows, and its guards on a zero system."""
+    rng = np.random.default_rng(0)
+    A = rng.normal(size=(24, 24))
+    S = (A @ A.T + np.diag(rng.uniform(0.1, 50.0, 24))).astype(np.float32)
+    S[:6], S[:, :6] = 0.0, 0.0
+    S[np.arange(6), np.arange(6)] = 1.0
+    b = rng.normal(size=24).astype(np.float32)
+    b[:6] = 0.0
+    for iters in (3, 48):
+        ref = np.asarray(jba._pcg_solve(jnp.asarray(S), jnp.asarray(b), iters))
+        out = tba._pcg_solve(torch.tensor(S), torch.tensor(b), iters).numpy()
+        np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
+    np.testing.assert_allclose(out, np.linalg.solve(S.astype(np.float64), b), rtol=1e-3,
+                               atol=1e-4)
+    z = tba._pcg_solve(torch.zeros(6, 6), torch.zeros(6), 48)
+    assert torch.equal(z, torch.zeros(6))
 
 
 def test_point_solvers_match_reference():

@@ -480,3 +480,81 @@ def test_local_ba_graph_replay_equals_eager(device, monkeypatch):
         assert g.n_iters == e.n_iters and g.n_iters > 2
         for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
             assert torch.equal(getattr(g, k), getattr(e, k)), k
+
+
+def test_local_ba_cg_graph_replay_equals_eager(device, monkeypatch):
+    """The Jacobi-preconditioned CG ("flat" at float32, "cg") replayed in
+    the LM iteration's CUDA graph gives what the eager iterations give,
+    bit for bit, on the BA windows of a 30-frame production run."""
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.solver import local_ba
+
+    solve = local_ba.solve_local_ba
+    windows = []
+
+    def record(cam, prob, n_free, **kw):
+        windows.append((cam, prob, n_free, kw))
+        return solve(cam, prob, n_free, **kw)
+
+    monkeypatch.setattr(local_ba, "solve_local_ba", record)
+    system, frames, q_wc, t_wc = _production_system(device, 30, False)
+    slice_run.run(system, frames, q_wc, t_wc, device)
+    assert len(windows) >= 2
+    for cam, prob, n_free, kw in windows[:3]:
+        kw = dict(kw, schur_impl="flat", use_bf16=False, linear_solver="cg")
+        g = solve(cam, prob, n_free, **kw)
+        e = solve(cam, prob, n_free, cuda_graph=False, **kw)
+        lu = solve(cam, prob, n_free, cuda_graph=False, **dict(kw, linear_solver="lu"))
+        assert g.n_iters == e.n_iters and g.n_iters > 2
+        for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
+            assert torch.equal(getattr(g, k), getattr(e, k)), k
+        assert abs(float(g.cost) - float(lu.cost)) <= 1e-3 * abs(float(lu.cost))
+
+
+def test_pose_graph_on_card_is_repeatable(device):
+    """The pose-graph solve on the card: two solves of one graph give the
+    same poses bit for bit (no accumulating scatter), within 1e-4 of the
+    CPU solve."""
+    from gmmloc_tpu_torch.geometry import se3
+    from gmmloc_tpu_torch.solver import pose_graph as pg
+
+    n = 40
+    rng = np.random.default_rng(0)
+    ang = 2 * np.pi * np.arange(n) / n
+    q = se3.so3_exp(torch.tensor(np.stack([0 * ang, 0 * ang, ang], -1), dtype=torch.float32))
+    t = torch.tensor(np.stack([np.cos(ang), np.sin(ang), 0 * ang], -1), dtype=torch.float32)
+    ei = torch.tensor([i for i in range(n) for d in (1, 2)], dtype=torch.int64)
+    ej = torch.tensor([(i + d) % n for i in range(n) for d in (1, 2)], dtype=torch.int64)
+    eq, et = se3.compose(q[ei], t[ei], *se3.inverse(q[ej], t[ej]))
+    noise = torch.tensor(rng.normal(0, 0.03, (n, 6)), dtype=torch.float32)
+    noise[0] = 0.0
+    q0, t0 = se3.boxplus(q, t, noise)
+    E = len(ei)
+    g = pg.PoseGraph(q=q0, t=t0, valid=torch.ones(n, dtype=torch.bool),
+                     fixed=torch.arange(n) == 0, edge_i=ei, edge_j=ej, edge_q=eq,
+                     edge_t=et, edge_info=torch.full((E, 6), 100.0),
+                     edge_valid=torch.ones(E, dtype=torch.bool))
+    a = pg.optimize_pose_graph(g, iters=15, device=device)
+    b = pg.optimize_pose_graph(g, iters=15, device=device)
+    c = pg.optimize_pose_graph(g, iters=15, device="cpu")
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.cpu(), z, atol=1e-4, rtol=1e-4)
+    assert float(a[2]) < 1e-3 < float(pg.optimize_pose_graph(g, iters=0, device=device)[2])
+
+
+def test_vocabulary_descent_on_card_equals_cpu(device):
+    """The tree descent (a 256-entry popcount table, the first child among
+    ties) gives the CPU's words on the card, ties included."""
+    from gmmloc_tpu_torch.vocab.bow import Vocabulary
+
+    rng = np.random.default_rng(0)
+    descs = rng.integers(0, 256, (6000, 32), dtype=np.uint8)
+    voc = Vocabulary.train(descs, k=10, depth=3, seed=0, device=device)
+    cpu = voc.to("cpu")
+    q = np.concatenate([descs, rng.integers(0, 256, (4000, 32), dtype=np.uint8),
+                        np.zeros((10, 32), np.uint8)])
+    np.testing.assert_array_equal(voc.transform_words(q), cpu.transform_words(q))
+    np.testing.assert_array_equal(
+        voc.word_weight, Vocabulary.train(descs, k=10, depth=3, seed=0,
+                                          device="cpu").word_weight)

@@ -306,7 +306,7 @@ def test_assemble_and_solve_matches_reference(captured, monkeypatch):
     res = local_ba.solve_local_ba(args[0], prob, n_free=kw["n_free"], use_bf16=False,
                                   **solve_kw)
     jres = jlocal_ba.solve_local_ba(cam, jprob, n_free=kw["n_free"], use_bf16=False,
-                                    cg_iters=48, **solve_kw)
+                                    **solve_kw)
     ok = prob.cam_valid.numpy()[:kw["n_free"]]
     qa, qb = res.cam_q.numpy()[:kw["n_free"]][ok], np.asarray(jres.cam_q)[:kw["n_free"]][ok]
     dq = np.abs(np.sum(qa * qb, 1)) / np.linalg.norm(qa, axis=1) / np.linalg.norm(qb, axis=1)

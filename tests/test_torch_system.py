@@ -178,7 +178,10 @@ def test_port_imports_without_jax():
         "    importlib.import_module(m)\n"
         "for m in ('gmmloc_tpu_torch.pipeline.frontend', 'gmmloc_tpu_torch.features.detect',\n"
         "          'gmmloc_tpu_torch.features.fast_kernels', 'gmmloc_tpu_torch.pipeline.rectify',\n"
-        "          'gmmloc_tpu_torch.eval.image_synthetic', 'gmmloc_tpu_torch.eval.slice_run'):\n"
+        "          'gmmloc_tpu_torch.eval.image_synthetic', 'gmmloc_tpu_torch.eval.slice_run',\n"
+        "          'gmmloc_tpu_torch.vocab.bow', 'gmmloc_tpu_torch.solver.pose_graph',\n"
+        "          'gmmloc_tpu_torch.tracking.relocalize', 'gmmloc_tpu_torch.mapping.loop_closing',\n"
+        "          'gmmloc_tpu_torch.eval.ate', 'gmmloc_tpu_torch.eval.reloc_run'):\n"
         "    assert m in mods, m\n"
         "assert 'jax.numpy' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('gmmloc_tpu.')]\n"
@@ -227,21 +230,49 @@ def test_entry_points_default_to_cuda():
         ImageFrontend(slice_run.image_config())
 
 
-@pytest.mark.parametrize("option", ["fused_kf_assoc", "pose_impl", "relocalization",
-                                    "loop_closing"])
+@pytest.mark.parametrize("option", ["pose_impl", "schur_flat_bf16",
+                                    "schur_blockdiag_bf16"])
 def test_system_rejects_unported_options(option):
-    """What still raises: the non-fused keyframe association, a pose solver
-    other than "auto", relocalization (a vocabulary) and loop closing."""
+    """What still raises: a pose solver other than "auto", and the BA's
+    "flat" and "blockdiag" layouts, whose bfloat16 rounding is not ported
+    (the system stages the BA in bfloat16; ROADMAP queue 3 p)."""
     cfg = slice_config()
     gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
-    kw = {}
-    if option == "fused_kf_assoc":
-        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, fused_kf_assoc=False))
-    elif option == "pose_impl":
+    if option == "pose_impl":
         cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pose_impl="pallas"))
-    elif option == "relocalization":
-        kw["vocabulary"] = object()
     else:
-        cfg = cfg.replace(enable_loop_closing=True)
+        impl = option.split("_")[1]
+        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, ba_schur_impl=impl))
     with pytest.raises(ValueError):
-        GMMLocSystem(cfg, gmap, "cpu", **kw)
+        GMMLocSystem(cfg, gmap, "cpu")
+
+
+def test_system_builds_with_ported_options():
+    """A vocabulary (relocalization), loop closing and the non-fused
+    keyframe association build; the vocabulary's descent moves to the
+    system's device."""
+    from gmmloc_tpu_torch.vocab.bow import Vocabulary
+
+    cfg = slice_config()
+    cfg = cfg.replace(enable_loop_closing=True,
+                      loc=dataclasses.replace(cfg.loc, fused_kf_assoc=False,
+                                              ba_linear_solver="cg"))
+    gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
+    voc = Vocabulary.train(np.random.default_rng(0).integers(0, 256, (200, 32), np.uint8),
+                           k=4, depth=2, device="cpu")
+    s = GMMLocSystem(cfg, gmap, "cpu", vocabulary=voc)
+    assert s.relocalizer is not None and s.loop_closer is not None
+    assert s.loop_closer.db is s.relocalizer.db
+    assert s.relocalizer.db.voc.device == torch.device("cpu")
+    assert not (s.lost or s.n_lost or s.recovery_frames)
+    # without a vocabulary there is neither (as the JAX package)
+    s2 = GMMLocSystem(cfg, gmap, "cpu")
+    assert s2.relocalizer is None and s2.loop_closer is None
+    if not torch.cuda.is_available():
+        from gmmloc_tpu_torch.mapping.loop_closing import LoopCloser
+        from gmmloc_tpu_torch.tracking.relocalize import Relocalizer
+
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Relocalizer(cfg, s.cam, s.world, voc)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            LoopCloser(cfg, s.world, s.relocalizer.db)
