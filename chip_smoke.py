@@ -81,7 +81,27 @@ Phases, each of which raises on failure (exit code non-zero):
      in `verify`, equal to the CPU's closure within 1e-4 m, the mirror
      equal after the sync, the graph bit-equal when solved again. Prints
      the closures, the ms per `close` and the pose graph's ms.
- 10. K3 exact against its plain version at every (N, M) the paths
+ 10. [disk]: the disk-driven image path (`eval/disk_run.py`). Phase 3's
+     pairs written as an EuRoC ASL tree of 8-bit PNGs (all five row
+     filters) beside the fixture's ground truth; the native decode ring
+     (the port's zlib PNG decoder, built with g++ from
+     `gmmloc_tpu_torch/native/png_ring.cpp`) alone, every
+     pair bit-equal to the written pixels, pairs/s; `GMMLocSystem.run`
+     over the ring and the double-buffered front end with phase 6's
+     configuration and checks, its trajectory equal to phase 6's (poses
+     bit for bit; where not, two in-memory runs show how far the card's
+     own runs part, and the disk run is held to that), frames/s, p50/p95
+     and the host's wait on the ring (`data/take`); a stop requested from
+     `on_frame` at frame 60 (no frame stepped after it); the run's world
+     saved, loaded into a fresh system and mirrored on the card (every
+     mirror table equal to the host's and to the original world's
+     mirror, the trajectory equal, the HTML viewer holding every
+     keyframe); the first 40 pairs with the "octree" keypoint
+     distribution; the `Rectifier` on the card from a synthetic
+     FileStorage calibration at 752x480 (maps equal to the CPU's, remap
+     within 1e-3 of the CPU's, equalisation exact, ms per pair). Then no
+     PIL, PyYAML or matplotlib may have been imported.
+ 11. K3 exact against its plain version at every (N, M) the paths
      launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
@@ -138,6 +158,12 @@ RELOC_MAX_ERR_M = 0.10
 LOOP_FRAMES = 440
 JAX_LOOP_CLOSURES = 0
 JAX_LOOP_MAX_ERR_M = 0.08382604801750247
+
+# [disk]: on_frame requests a stop when this frame's stat arrives; the
+# octree run takes this many pairs from the tree
+DISK_STOP_FRAME = 60
+DISK_OCTREE_FRAMES = 40
+
 
 def k3_shapes():
     """K3's shapes on the paths: frame x local map (1280^2), the widened
@@ -412,7 +438,7 @@ def run_image_path(device, card, cfg, gmap, images, ts, q_wc, t_wc):
         raise RuntimeError(f"[image] K4 launched {launches['K4']} times for "
                            f"{n_frames} frames")
     _check_path("image", out, errs, image_gate(), n_anchors, tuple(KERNELS))
-    return out
+    return out, system.export_trajectory()
 
 
 def run_production(card, name, make_system, loop, t_wc, warmup, measured, gate, needed):
@@ -762,6 +788,251 @@ def run_loop_phase(device, card) -> dict:
     return out
 
 
+def _mirror_tables(world, device) -> dict:
+    """A fresh device-world mirror of `world`, synced, as host arrays."""
+    import torch
+
+    from gmmloc_tpu_torch.mapping.device_world import DeviceWorld
+
+    mirror = DeviceWorld(world, device)
+    mirror.sync()
+    return {k: v.cpu().numpy() for k, v in vars(mirror).items()
+            if isinstance(v, torch.Tensor)}
+
+
+def _mirror_differs(tables, world, other=None) -> list:
+    """The mirror tables whose live rows (the world's valid keyframes and
+    points) differ from the host's, or from `other`'s where given (a
+    removed row may hold stale values: the validity masks it)."""
+    import numpy as np
+
+    kfs, pts = np.where(world.kf_valid)[0], np.where(world.pt_valid)[0]
+    if other is None:
+        comp = np.where(world.pt_assoc_vetted, world.pt_assoc_comp, -1)
+        other = dict(pt_comp=comp, pt_acomp=world.pt_assoc_comp,
+                     **{k: getattr(world, k) for k in tables if hasattr(world, k)})
+    bad = []
+    for k, v in tables.items():
+        rows = kfs if k.startswith("kf_") else pts
+        if not np.array_equal(v[rows], np.asarray(other[k])[rows].astype(v.dtype)):
+            bad.append(k)
+    return bad
+
+
+def run_disk_phase(device, card, cfg, img_inputs, img_traj) -> dict:
+    """[disk]: phase 3's rendered pairs written as an EuRoC ASL tree of
+    PNGs, read back by the native decode ring and run through
+    `GMMLocSystem.run` (`eval/disk_run.py`): the decode alone, the run
+    held to phase 6's checks and trajectory, a stop from `on_frame`, a
+    checkpoint loaded into a fresh system and its mirror, the octree
+    keypoint distribution and the Rectifier on the card. Returns {run:
+    out}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gmmloc_tpu_torch.eval import disk_run, slice_run
+    from gmmloc_tpu_torch.pipeline import checkpoint, html_viewer, rectify
+    from gmmloc_tpu_torch.pipeline.dataloader import EuRoCDataloader
+    from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+    from gmmloc_tpu_torch.utils import native, timing
+    from gmmloc_tpu_torch.utils.control import control
+
+    gmap, images, ts, q_wc, t_wc = img_inputs
+    n = len(images)
+    fixture = os.path.join(slice_run.default_fixture_dir(), "image")
+    root = os.path.join(fixture, "asl")
+    outs = {}
+
+    # 1. the tree
+    t0 = time.perf_counter()
+    n_bytes = disk_run.write_asl_tree(root, images, ts)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load("png_ring")
+    build_s = time.perf_counter() - t0
+    decoder = (f"{native.decoder_name()} in "
+               f"{os.path.relpath(native.library_path('png_ring'), ROOT)} (g++, "
+               f"{build_s:.1f}s to build and load)")
+    log(f"[disk] wrote {n} pairs, {n_bytes} bytes in {write_s:.2f}s under {root}; "
+        f"decoder {decoder}")
+
+    # 2. the decode ring alone
+    loader = EuRoCDataloader(root, gt_path=os.path.join(fixture, "room_gt.txt"))
+    timing.reset()
+    t0 = time.perf_counter()
+    decoded = [(l, r) for _, l, r in loader.pairs()]
+    ring_s = time.perf_counter() - t0
+    same = len(decoded) == n and all(np.array_equal(a, c) and np.array_equal(b, d)
+                                     for (a, b), (c, d) in zip(decoded, images))
+    ring = dict(pairs=len(decoded), seconds=ring_s, pairs_per_s=len(decoded) / ring_s,
+                bit_equal=same, decoder=decoder)
+    log(f"[disk] decode ring alone {json.dumps(ring)} on {card}")
+    if not same:
+        raise RuntimeError("[disk] the decoded pairs differ from the written pixels")
+    del decoded
+    outs["ring"] = ring
+
+    # 3. the disk run
+    frontend = ImageFrontend(cfg, device=device)
+    system = GMMLocSystem(cfg, gmap, device)
+    control.reset()
+    slice_run.timing_table(reset=True)
+    reset_launches()
+    ran = disk_run.run(system, frontend, loader)
+    launches = read_launches()
+    take = timing.REGISTRY.get("data/take")
+    log(f"[disk] host timers on {card}:\n{slice_run.timing_table()}")
+    frames = ran["frames"]
+    n_anchors = ran["n_anchors"][-IMG_MEASURED:]
+    errs = slice_run.pose_errors(frames, t_wc)
+    traj = system.export_trajectory()
+    pose_equal = all(np.array_equal(a, b) for a, b in zip(traj[1:], img_traj[1:]))
+    out = dict(frames=len(frames), measured=IMG_MEASURED, tracked=system.n_tracked,
+               max_err_m=float(errs.max()), mean_err_m=float(errs.mean()),
+               err_gate_m=image_gate(), keyframes=system.world.n_keyframes(),
+               points=system.world.n_points(), take_ms_mean=take.mean() * 1e3,
+               take_ms_max=take.max * 1e3, takes=take.count,
+               seconds=ran["seconds"], launches=launches,
+               trajectory_equal_to_image_path=pose_equal,
+               timestamps_vs_image_path_s=float(np.abs(traj[0] - img_traj[0]).max()),
+               **_summary(ran["step_s"], n_anchors, IMG_WARMUP, IMG_MEASURED))
+    if not pose_equal:
+        # two in-memory runs on the card: how far apart the card's own
+        # runs land on the same pixels
+        again = GMMLocSystem(cfg, gmap, device)
+        slice_run.run_image(again, ImageFrontend(cfg, device=device), images, ts, q_wc, t_wc)
+        t2 = again.export_trajectory()
+        out["memory_vs_memory_m"] = float(np.abs(t2[2] - img_traj[2]).max())
+        out["disk_vs_memory_m"] = float(np.abs(traj[2] - img_traj[2]).max())
+    log(f"[disk] {json.dumps(out)} on {card}")
+    if len(frames) != n or system.n_tracked != n - 1:
+        raise RuntimeError(f"[disk] {len(frames)} frames completed, {system.n_tracked} "
+                           f"tracked, of {n}")
+    if launches["K4"] < n:
+        raise RuntimeError(f"[disk] K4 launched {launches['K4']} times for {n} frames")
+    _check_path("disk", out, errs, image_gate(), n_anchors, tuple(KERNELS))
+    if not pose_equal and not (0 < out["disk_vs_memory_m"] <= out["memory_vs_memory_m"]):
+        raise RuntimeError(f"[disk] the trajectory differs from the image path's by "
+                           f"{out['disk_vs_memory_m']} m, two in-memory runs by "
+                           f"{out['memory_vs_memory_m']} m")
+    log(f"[result] disk: {out['fps']:.2f} tracked frames/s, p50 {out['p50_ms']:.1f} ms, "
+        f"p95 {out['p95_ms']:.1f} ms per frame, data/take {out['take_ms_mean']:.3f} ms "
+        f"per frame, trajectory equal to the image path's: {pose_equal}, max error "
+        f"{out['max_err_m'] * 100:.2f} cm on {card}")
+    outs["disk"] = out
+
+    # 4. a stop from on_frame
+    stopper = GMMLocSystem(cfg, gmap, device)
+    inner, after_stop, stepped = stopper.step, [], []
+
+    def step(frame, *a):
+        stepped.append(frame.idx)
+        if control.stop:
+            after_stop.append(frame.idx)
+        return inner(frame, *a)
+
+    def on_frame(i, frame, stat):
+        if frame.idx == DISK_STOP_FRAME:
+            control.request_stop()
+
+    stopper.step = step
+    try:
+        world = disk_run.run(stopper, ImageFrontend(cfg, device=device), loader,
+                             on_frame=on_frame)["world"]
+    finally:
+        stop_seen = control.stop
+        control.reset()
+    stop = dict(stepped=len(stepped), last_stepped=stepped[-1], after_stop=after_stop,
+                recorded=len(stopper.world.frame_infos))
+    log(f"[disk] stop from on_frame at frame {DISK_STOP_FRAME} {json.dumps(stop)} on {card}")
+    if (not stop_seen or after_stop or world is not stopper.world
+            or stop["recorded"] != len(stepped)
+            or not DISK_STOP_FRAME < stepped[-1] < n - 1):
+        raise RuntimeError(f"[disk] the stop at frame {DISK_STOP_FRAME}: {stop}")
+    outs["stop"] = stop
+
+    # 5. checkpoint: the disk run's world into a fresh system on the card
+    path = os.path.join(fixture, "disk_world.npz")
+    checkpoint.save_checkpoint(path, system.world, frame_cursor=n)
+    fresh = GMMLocSystem(cfg, gmap, device)
+    cursor, _ = checkpoint.load_checkpoint(path, fresh.world)
+    mine, theirs = _mirror_tables(fresh.world, device), _mirror_tables(system.world, device)
+    bad = (_mirror_differs(mine, fresh.world)
+           + [f"{k} (original)" for k in _mirror_differs(mine, fresh.world, theirs)])
+    traj_equal = all(np.array_equal(a, b) for a, b in zip(fresh.export_trajectory(), traj))
+    html = os.path.join(fixture, "disk_world.html")
+    html_viewer.export_html(fresh.world, html, gmm=gmap)
+    text = open(html).read()
+    frusta = json.loads(text.split("const D = ", 1)[1].split(";\n", 1)[0])["frusta"]
+    ck = dict(cursor=cursor, npz_bytes=os.path.getsize(path), mirror_tables=len(mine),
+              mirror_differs=bad, trajectory_equal=traj_equal, html_bytes=len(text),
+              html_keyframes=len(frusta) // 8, keyframes=fresh.world.n_keyframes())
+    log(f"[disk] checkpoint {json.dumps(ck)} on {card}")
+    if (bad or not traj_equal or cursor != n or not text
+            or ck["html_keyframes"] != ck["keyframes"] or len(frusta) % 8):
+        raise RuntimeError(f"[disk] checkpoint: {ck}")
+    outs["checkpoint"] = ck
+
+    # 6. the octree keypoint distribution over the first pairs
+    n_oct = DISK_OCTREE_FRAMES
+    ocfg = cfg.replace(frame=dataclasses.replace(cfg.frame, detect_distribution="octree"))
+    osys = GMMLocSystem(ocfg, gmap, device)
+    reset_launches()
+    oran = disk_run.run(osys, ImageFrontend(ocfg, device=device), loader, n=n_oct)
+    olaunch = read_launches()
+    oerrs = slice_run.pose_errors(oran["frames"], t_wc)
+    octo = dict(frames=len(oran["frames"]), tracked=osys.n_tracked,
+                max_err_m=float(oerrs.max()), err_gate_m=image_gate(),
+                fps=n_oct / oran["seconds"], launches=olaunch,
+                features_mean=float(np.mean([f.num_features() for f in oran["frames"]])))
+    log(f"[disk] octree {json.dumps(octo)} on {card}")
+    if (octo["frames"] != n_oct or osys.n_tracked != n_oct - 1 or olaunch["K4"] < n_oct
+            or oerrs.max() >= image_gate()):
+        raise RuntimeError(f"[disk] octree: {octo}")
+    outs["disk_octree"] = dict(octo, launches=olaunch)
+
+    # 7. the Rectifier on the card
+    ypath = os.path.join(fixture, "rect.yaml")
+    disk_run.write_rect_filestorage(ypath, cfg.camera.width, cfg.camera.height)
+    rc, rh = rectify.Rectifier(ypath, device=device), rectify.Rectifier(ypath, device="cpu")
+    maps_equal = all(np.array_equal(a.cpu().numpy(), b.numpy())
+                     for side in ("LEFT", "RIGHT") for a, b in zip(rc.maps[side], rh.maps[side]))
+    left, right = (torch.from_numpy(im.astype(np.float32)) for im in images[0])
+    out_c = [rc.rectify_left(left.to(device)), rc.rectify_right(right.to(device))]
+    out_h = [rh.rectify_left(left), rh.rectify_right(right)]
+    remap_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(out_c, out_h))
+    eq_exact = all(torch.equal(rectify.equalize_hist(b.to(device)).cpu(),
+                               rectify.equalize_hist(b)) for b in out_h)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    reps = 20
+    gl, gr = left.to(device), right.to(device)
+    for _ in range(3):
+        rectify.equalize_hist(rc.rectify_left(gl)), rectify.equalize_hist(rc.rectify_right(gr))
+    ev[0].record()
+    for _ in range(reps):
+        rectify.equalize_hist(rc.rectify_left(gl)), rectify.equalize_hist(rc.rectify_right(gr))
+    ev[1].record()
+    torch.cuda.synchronize()
+    rect = dict(size=[rc.width, rc.height], maps_equal=maps_equal, remap_max_abs_err=remap_err,
+                equalize_exact=eq_exact, ms_per_pair=ev[0].elapsed_time(ev[1]) / reps,
+                warp_px=float((rh.maps["LEFT"][0] - torch.arange(rc.width)).abs().max()))
+    log(f"[disk] rectify {json.dumps(rect)} on {card}")
+    if not maps_equal or remap_err >= 1e-3 or not eq_exact or rect["warp_px"] <= 0.5:
+        raise RuntimeError(f"[disk] rectify: {rect}")
+    outs["rectify"] = rect
+    return outs
+
+
+def check_host_libs():
+    """No PIL, PyYAML or matplotlib: the machines with the card have none."""
+    mods = sorted(m for m in ("PIL", "yaml", "matplotlib") if m in sys.modules)
+    if mods:
+        raise RuntimeError(f"the port imported {mods}")
+
+
 def check_path_shapes(device, card) -> dict:
     """K3 exact against its plain version at every (N, M) the paths
     launched it at (the triangulation searches' N1 x T*N2 for each
@@ -837,7 +1108,7 @@ def main() -> int:
     log(f"[result] feature path: {main_out['fps']:.2f} tracked frames/s, p50 "
         f"{main_out['p50_ms']:.1f} ms, p95 {main_out['p95_ms']:.1f} ms per frame "
         f"on {card}")
-    img_out = run_image_path(device, card, img_cfg, *img_inputs)
+    img_out, img_traj = run_image_path(device, card, img_cfg, *img_inputs)
     log(f"[result] image path: {img_out['fps']:.2f} tracked frames/s, p50 "
         f"{img_out['p50_ms']:.1f} ms, p95 {img_out['p95_ms']:.1f} ms per frame, "
         f"front end {img_out['frontend_ms_mean']:.2f} ms/frame (CUDA events), max error "
@@ -850,6 +1121,10 @@ def main() -> int:
     prod.update(run_reloc_phase(device, card))
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [reloc]")
     prod["loop"] = run_loop_phase(device, card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [loop]")
+    disk = run_disk_phase(device, card, img_cfg, img_inputs, img_traj)
+    check_host_libs()
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [disk]")
     k3_paths = check_path_shapes(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)
@@ -862,7 +1137,9 @@ def main() -> int:
             launches=img_out["launches"][key],
             launches_by_path=dict(feature=main_out["launches"][key],
                                   image=img_out["launches"][key],
-                                  **{n: o["launches"][key] for n, o in prod.items()}),
+                                  **{n: o["launches"][key] for n, o in prod.items()},
+                                  **{n: disk[n]["launches"][key]
+                                     for n in ("disk", "disk_octree")}),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], shape=k["shape"],

@@ -189,6 +189,17 @@ def chained_share(ran: dict, warmup: int) -> float:
     return float((c[-1] - c0) - (r[-1] - r0)) / max(1, n)
 
 
+def stream_sync(device):
+    """A function that waits for the work queued on the calling thread's
+    current CUDA stream (nothing on the CPU). Not a device-wide
+    synchronize: in online mode the mapper thread may be capturing a CUDA
+    graph on its own stream, and a device-wide synchronize during a
+    capture fails (cudaErrorStreamCaptureUnsupported)."""
+    if torch.device(device).type != "cuda":
+        return lambda: None
+    return lambda: torch.cuda.current_stream().synchronize()
+
+
 def _check_tracked(system, st, i):
     if system.track_failed or (st is not None and not st.res):
         raise RuntimeError(f"tracking failed at frame {i}")
@@ -207,7 +218,7 @@ def run_image(system, frontend, images, ts, q_wc, t_wc, first_idx: int = 0) -> d
     from an earlier one). Stats lag by the pipeline depth (None while it
     fills). Raises on a tracking failure."""
     cuda = frontend.device.type == "cuda"
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync = stream_sync(frontend.device)
     log = _AnchorLog(system)
     chain = _ChainLog(system)
     step_s, marks, frames = [], [], []
@@ -256,8 +267,9 @@ def run(system, frames, q_wc, t_wc, device) -> dict:
     completed, and the chain counters per step (`chained_share`). Stats
     lag by the pipeline depth (None while it fills); the
     last step's time holds the flush. Raises on a tracking failure. On a
-    CUDA device the clock stops after a synchronize."""
-    sync = torch.cuda.synchronize if torch.device(device).type == "cuda" else (lambda: None)
+    CUDA device the clock stops after the caller's stream is
+    synchronized (`stream_sync`)."""
+    sync = stream_sync(device)
     log = _AnchorLog(system)
     chain = _ChainLog(system)
     step_s = []

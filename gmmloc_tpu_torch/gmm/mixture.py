@@ -13,7 +13,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..utils import proto
+from ..utils import native
 from ..utils.device import resolve
 
 FIELDS = ("means", "covs", "cov_inv", "det", "scale", "axis", "normal",
@@ -172,6 +172,7 @@ def host_view(gmap: GMMMap) -> dict:
 
 def load(path: str, device="cuda", pad_to: int | None = None, **kw) -> GMMMap:
     """Load a `.gmm` protobuf stream (ref loadGMMModel, gmm_utils.cpp:9-67)
-    through the shared parser."""
-    means, covs, _, _ = proto.load_gmm_file(path)
+    through the native parser (`utils/native.py`, built from
+    `native/gmmloc_native.cpp`), as the JAX package's `load` does."""
+    means, covs, _, _ = native.load_gmm_file(path)
     return from_arrays(means, covs, device, pad_to=pad_to, **kw)

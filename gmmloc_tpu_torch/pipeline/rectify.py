@@ -3,7 +3,9 @@
 PyTorch port of `gmmloc_tpu/pipeline/rectify.py` (ref cv_utils::Rectify,
 cv_utils.cpp:9-54, config gmmloc_ros/cfg/euroc_rect.yaml): the
 undistort+rectify maps are computed once on the host in numpy (radtan
-model), and each frame is a bilinear gather on the device.
+model), and each frame is a bilinear gather on the device. The
+calibration file is read by a small parser of its own
+(`read_filestorage`), so no YAML library is needed.
 """
 
 from __future__ import annotations
@@ -70,32 +72,78 @@ def equalize_hist(img):
     return lut[i8]
 
 
+def read_filestorage(path: str) -> dict:
+    """The top-level nodes of an OpenCV FileStorage YAML file (the
+    reference's euroc_rect.yaml schema) without a YAML library: a
+    `%YAML:1.0` header, scalar nodes (`LEFT.width: 752`) as int or float,
+    and `!!opencv-matrix` nodes (indented `rows`, `cols`, `dt` and
+    `data: [...]`, the list possibly over several lines) as float64
+    arrays of shape (rows, cols)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    out, node, data = {}, None, None
+
+    def number(tok):
+        try:
+            return int(tok)
+        except ValueError:
+            return float(tok)
+
+    def close_matrix():
+        vals = np.array([float(v) for v in data.replace(",", " ").split()], np.float64)
+        out[node["name"]] = vals.reshape(node["rows"], node["cols"])
+
+    for raw in lines:
+        line = raw.split("#", 1)[0].rstrip() if not raw.startswith("%") else ""
+        if not line.strip() or line.strip() == "---":
+            continue
+        if data is not None:                      # inside a data list
+            data += " " + line
+            if "]" in line:
+                data = data[:data.index("]")]
+                close_matrix()
+                node, data = None, None
+            continue
+        key, _, val = line.strip().partition(":")
+        key, val = key.strip(), val.strip()
+        if not raw[:1].isspace():                 # a top-level node
+            if val.startswith("!!opencv-matrix"):
+                node = dict(name=key)
+            elif val:
+                out[key], node = number(val), None
+            else:
+                raise ValueError(f"{path}: unsupported node {raw!r}")
+        elif node is None:
+            raise ValueError(f"{path}: indented line outside a matrix: {raw!r}")
+        elif key in ("rows", "cols"):
+            node[key] = int(val)
+        elif key == "data":
+            if not val.startswith("["):
+                raise ValueError(f"{path}: matrix data is not a list: {raw!r}")
+            data = val[1:]
+            if "]" in data:
+                data = data[:data.index("]")]
+                close_matrix()
+                node, data = None, None
+        elif key != "dt":
+            raise ValueError(f"{path}: unknown matrix field {key!r}")
+    if data is not None:
+        raise ValueError(f"{path}: unterminated matrix data")
+    return out
+
+
 class Rectifier:
-    """Reads the reference's euroc_rect.yaml schema (OpenCV FileStorage)
-    and rectifies frames on `device`."""
+    """Reads the reference's euroc_rect.yaml schema (OpenCV FileStorage,
+    `read_filestorage`) and rectifies frames on `device`."""
 
     def __init__(self, yaml_path: str, device="cuda"):
-        import yaml
-
         self.device = resolve(device)
-        with open(yaml_path) as f:
-            txt = f.read()
-        # OpenCV FileStorage yaml is not valid YAML ("%YAML:1.0" directive,
-        # "!!opencv-matrix" tags, "data:[..." without a space)
-        txt = txt.replace("%YAML:1.0", "").replace("!!opencv-matrix", "")
-        txt = txt.replace("data:[", "data: [")
-        cfg = yaml.safe_load(txt)
-
-        def mat(side, name):
-            node = cfg[f"{side}.{name}"]
-            return np.array(node["data"], np.float64).reshape(node["rows"], node["cols"])
-
+        cfg = read_filestorage(yaml_path)
         w, h = int(cfg["LEFT.width"]), int(cfg["LEFT.height"])
         self.width, self.height = w, h
         self.maps = {}
         for side in ("LEFT", "RIGHT"):
-            mx, my = compute_rectify_map(mat(side, "K"), mat(side, "D"), mat(side, "R"),
-                                         mat(side, "P"), w, h)
+            mx, my = compute_rectify_map(*(cfg[f"{side}.{m}"] for m in "KDRP"), w, h)
             self.maps[side] = (torch.from_numpy(mx).to(self.device),
                                torch.from_numpy(my).to(self.device))
 

@@ -17,6 +17,8 @@ PyTorch port of `gmmloc_tpu/pipeline/system.py` (ref gmmloc.cpp spin
     pose) re-runs the frames still in flight synchronously.
   - `flush` drains every frame in flight; `stop` also drains and joins
     the mapper thread.
+  - `run` is the offline batch loop over a frame iterable, gated by the
+    run-control flags (`utils/control.py`: pause, single-step, stop).
   - With a vocabulary (`vocabulary=`, `enable_relocalization`), a frame
     whose track fails puts the system in the LOST state instead of ending
     the run: it keeps consuming frames synchronously and tries BoW
@@ -36,13 +38,14 @@ from __future__ import annotations
 import dataclasses
 import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
 from ..mapping import map_state as ms
 from ..tracking.frame import Frame
+from ..utils.control import control
 from ..utils.device import resolve
 from ..utils.timing import Timer
 
@@ -109,6 +112,7 @@ class GMMLocSystem:
         self.tracker.dev_world = self.localizer.dev_world
         if self.localizer.dev_world is None:
             self._depth = 1
+        self._last_done = None          # the frame the latest stat belongs to
         self.online = None
         if cfg.online:
             self.online = OnlineLocalization(self.localizer)
@@ -405,6 +409,37 @@ class GMMLocSystem:
         st2 = self._drain_all()
         return st2 if st2 is not None else st
 
+    def run(self, frames: Iterable, gt_q_wc=None, gt_t_wc=None,
+            on_frame: Optional[Callable] = None):
+        """Offline batch run (ref gmmloc.cpp spin :123-197). `frames`
+        yields Frames; the optional ground-truth arrays give the frame-0
+        pose anchor. Before each frame the run-control gate waits while
+        paused (a single step lets one frame through) and a stop ends the
+        loop; a fatal tracking failure ends it too. In pipelined mode a
+        stat belongs to an earlier frame: `on_frame(i, frame, stat)` gets
+        the frame it was computed for (`_last_done`) and `i`, the index
+        of the latest frame stepped; the flush's stat goes through the
+        same call. Returns `self.world`."""
+        self._last_done = None
+        i = -1
+        for i, frame in enumerate(frames):
+            while not control.should_run() and not control.stop:
+                time.sleep(0.001)
+            control.consume_step()
+            if control.stop:
+                break
+            g_q = gt_q_wc[i] if gt_q_wc is not None else None
+            g_t = gt_t_wc[i] if gt_t_wc is not None else None
+            stat = self.step(frame, g_q, g_t)
+            if self.track_failed:
+                break
+            if stat is not None and stat.res and on_frame is not None:
+                on_frame(i, self._last_done or frame, stat)
+        stat = self.flush()
+        if stat is not None and stat.res and on_frame is not None:
+            on_frame(i, self._last_done, stat)
+        return self.world
+
     def stop(self) -> None:
         """Drain the in-flight frames, then the mapper thread's queue, and
         join it (ref gmmloc.cpp:366). Raises the mapper's exception, or if
@@ -420,6 +455,7 @@ class GMMLocSystem:
             self.n_lost += 1
             if self._recover(frame):
                 self.world.update_frame_info(frame)
+                self._last_done = frame
                 return TrackStat(res=True, num_match_inliers=30, ratio_map=0.3)
             return TrackStat(res=False)
         self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
@@ -431,6 +467,7 @@ class GMMLocSystem:
             self.tracker.initialize(frame)
             self.initialized = True
             self.world.update_frame_info(frame)
+            self._last_done = frame
             return TrackStat(res=True, num_match_inliers=0, ratio_map=1.0)
         return self._track_and_map(frame)
 
@@ -468,6 +505,7 @@ class GMMLocSystem:
         if frame.ref_kf < 0:
             frame.ref_kf = self.tracker.ref_keyframe
         self.world.update_frame_info(frame)
+        self._last_done = frame
         return stat
 
     def _map_keyframe(self, kf: int) -> None:

@@ -259,6 +259,33 @@ def test_equalize_remap_and_rectifier(tmp_path):
                                tr.rectify_left(torch.from_numpy(small)).numpy(), atol=1e-3)
 
 
+@pytest.mark.parametrize("size,wrap", [((160, 120), False), ((752, 480), True)])
+def test_rectifier_without_yaml(tmp_path, monkeypatch, size, wrap):
+    """The port reads the FileStorage file with its own parser: with
+    `yaml` unimportable its maps stay bit-equal to the JAX Rectifier's
+    (which reads the file with PyYAML), also when each matrix's data list
+    runs over several lines."""
+    import sys
+
+    path = str(tmp_path / "rect.yaml")
+    _write_rect_yaml(path, *size)
+    if wrap:
+        txt = open(path).read().replace(", ", ",\n      ")
+        open(path, "w").write(txt)
+    jr = jrect.Rectifier(path)
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    with pytest.raises(ImportError):
+        import yaml  # noqa: F401
+    tr = rectify.Rectifier(path, device="cpu")
+    assert (tr.width, tr.height) == size
+    for side in ("LEFT", "RIGHT"):
+        for a, b in zip(jr.maps[side], tr.maps[side]):
+            assert b.shape == (size[1], size[0])
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    cfg = rectify.read_filestorage(path)
+    assert cfg["RIGHT.D"].shape == (1, 4) and cfg["LEFT.P"].shape == (3, 4)
+
+
 def test_process_packed_matches_reference():
     """The one-pass front end of both packages on one sprite pair, with
     histogram equalisation on. The pyramids differ in the last ulps (the

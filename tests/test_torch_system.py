@@ -168,9 +168,12 @@ def _check_slice(fixture_paths, max_rot_deg):
 
 def test_port_imports_without_jax():
     """Every module of the port imports with JAX and the JAX package made
-    unimportable, and none of them loads either."""
+    unimportable, and none of them loads either; nor PIL, PyYAML or
+    matplotlib, which the machines with the card do not have."""
     code = (
-        "import sys; sys.modules['jax'] = None; sys.modules['gmmloc_tpu'] = None\n"
+        "import sys\n"
+        "for m in ('jax', 'gmmloc_tpu', 'PIL', 'yaml', 'matplotlib'):\n"
+        "    sys.modules[m] = None\n"
         "import importlib, pkgutil, gmmloc_tpu_torch\n"
         "mods = [m.name for m in pkgutil.walk_packages(gmmloc_tpu_torch.__path__,\n"
         "                                              'gmmloc_tpu_torch.')]\n"
@@ -181,7 +184,11 @@ def test_port_imports_without_jax():
         "          'gmmloc_tpu_torch.eval.image_synthetic', 'gmmloc_tpu_torch.eval.slice_run',\n"
         "          'gmmloc_tpu_torch.vocab.bow', 'gmmloc_tpu_torch.solver.pose_graph',\n"
         "          'gmmloc_tpu_torch.tracking.relocalize', 'gmmloc_tpu_torch.mapping.loop_closing',\n"
-        "          'gmmloc_tpu_torch.eval.ate', 'gmmloc_tpu_torch.eval.reloc_run'):\n"
+        "          'gmmloc_tpu_torch.eval.ate', 'gmmloc_tpu_torch.eval.reloc_run',\n"
+        "          'gmmloc_tpu_torch.utils.control', 'gmmloc_tpu_torch.utils.native',\n"
+        "          'gmmloc_tpu_torch.pipeline.dataloader', 'gmmloc_tpu_torch.pipeline.checkpoint',\n"
+        "          'gmmloc_tpu_torch.pipeline.html_viewer', 'gmmloc_tpu_torch.pipeline.live_viewer',\n"
+        "          'gmmloc_tpu_torch.pipeline.visualizer', 'gmmloc_tpu_torch.eval.disk_run'):\n"
         "    assert m in mods, m\n"
         "assert 'jax.numpy' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('gmmloc_tpu.')]\n"
@@ -194,10 +201,12 @@ def test_port_imports_without_jax():
 
 def test_no_jax_import_in_port_sources():
     """No source of the port, nor chip_smoke.py, imports JAX or the JAX
-    package (`gmmloc_tpu`, not `gmmloc_tpu_torch`)."""
+    package (`gmmloc_tpu`, not `gmmloc_tpu_torch`), PIL or PyYAML, and
+    matplotlib only inside a function."""
     import re
 
-    bad = re.compile(r"^\s*(import|from)\s+(jax|gmmloc_tpu)(\s|\.|$)", re.M)
+    bad = re.compile(r"^\s*(import|from)\s+(jax|gmmloc_tpu|PIL|yaml)(\s|\.|$)", re.M)
+    top_mpl = re.compile(r"^(import|from)\s+matplotlib", re.M)
     pkg = os.path.join(ROOT, "gmmloc_tpu_torch")
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, names in os.walk(pkg):
@@ -206,10 +215,13 @@ def test_no_jax_import_in_port_sources():
     for path in files:
         with open(path) as f:
             src = f.read()
-        if "import jax" in src or "from jax" in src or bad.search(src):
+        if ("import jax" in src or "from jax" in src or bad.search(src)
+                or top_mpl.search(src)):
             offenders.append(os.path.relpath(path, ROOT))
     assert not offenders, offenders
     assert bad.search("from gmmloc_tpu.config import x") and bad.search("import gmmloc_tpu\n")
+    assert bad.search("    import yaml\n") and bad.search("from PIL import Image")
+    assert top_mpl.search("import matplotlib\n") and not top_mpl.search("    import matplotlib")
     assert not bad.search("from gmmloc_tpu_torch.config import x")
 
 
