@@ -101,7 +101,26 @@ Phases, each of which raises on failure (exit code non-zero):
      FileStorage calibration at 752x480 (maps equal to the CPU's, remap
      within 1e-3 of the CPU's, equalisation exact, ms per pair). Then no
      PIL, PyYAML or matplotlib may have been imported.
- 11. K3 exact against its plain version at every (N, M) the paths
+ 11. [multi]: the multi-device paths (`gmmloc_tpu_torch/entry.py`,
+     `parallel/`) at the production shapes of the JAX package's
+     `dryrun_multichip` (association K=3328, F=1280; local BA L=16, C=48,
+     P=8192, MO=8, 5/5/40, "flat" at bfloat16), and a second BA window,
+     the dry run's with 0.3 px of noise on the observations and 1 cm on
+     the points (`entry.noisy_window`: the dry run's starts at the truth
+     and barely moves, so only a moving solve shows a sum left out of the
+     reduction): (a) `dryrun_multichip(1)` and the noisy window on a real
+     NCCL group of one rank, the sharded association equal to the
+     unsharded port and both sharded BAs bit-equal to the unsharded
+     solves; (b) both over two gloo ranks on the one card, association
+     equal, each BA's points, camera positions and quaternions within
+     1e-4 of the unsharded solve's, its cost within 1e-5 relatively and
+     its LM iterations the same (`entry.ba_gap_fault`); (c)
+     `eval/sweep.py --spawn 2`, one 40-frame feature-path job per rank,
+     merged on rank 0; (d) `entry()` with K1, K2 and K3 launched. Prints
+     ms per LM iteration sharded (eager) against unsharded (replayed),
+     the collectives' ms, bytes and calls per iteration and the
+     association's ms. Each rank is a process with its own time limit.
+ 12. K3 exact against its plain version at every (N, M) the paths
      launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
@@ -163,6 +182,8 @@ JAX_LOOP_MAX_ERR_M = 0.08382604801750247
 # octree run takes this many pairs from the tree
 DISK_STOP_FRAME = 60
 DISK_OCTREE_FRAMES = 40
+# [multi]: frames of each sweep job
+SWEEP_FRAMES = 40
 
 
 def k3_shapes():
@@ -1026,6 +1047,110 @@ def run_disk_phase(device, card, cfg, img_inputs, img_traj) -> dict:
     return outs
 
 
+def _check_multi(name, card, sharded: dict, whole: dict, noisy: dict,
+                 noisy_whole: dict) -> dict:
+    """[multi] (a)/(b): association exact; the BA of the dry-run window
+    and of the noisy window as the unsharded solve's (`entry.ba_gap_fault`:
+    within 1e-4 m, the same cost and LM iterations, bit for bit at one
+    rank); prints the times beside the card."""
+    import numpy as np
+
+    from gmmloc_tpu_torch import entry
+
+    if not (np.array_equal(sharded["visible"], whole["visible"])
+            and np.array_equal(sharded["cand"], whole["cand"])):
+        raise RuntimeError(f"[multi] {name}: the sharded association differs from the "
+                           "unsharded one")
+    gaps = dict(dryrun=entry.ba_gap(sharded, whole), noisy=entry.ba_gap(noisy, noisy_whole))
+    for window, res in (("dryrun", sharded), ("noisy", noisy)):
+        fault = entry.ba_gap_fault(gaps[window], sharded["size"])
+        if not np.isfinite(res["cost"]) or fault is not None:
+            raise RuntimeError(f"[multi] {name}: the sharded BA of the {window} window "
+                               f"(cost {res['cost']}) is {fault}")
+    coll = sharded["ba_collectives"]
+    it = max(sharded["n_iters"], 1)
+    out = dict(
+        ranks=sharded["size"], assoc_ms=sharded["assoc_ms"],
+        assoc_ms_unsharded=whole["assoc_ms"], visible=int(whole["visible"].sum()),
+        candidates=int((whole["cand"] >= 0).sum()),
+        ba_ms_per_iter_sharded_eager=sharded["ba_ms_per_iter"],
+        ba_ms_per_iter_unsharded_replayed=whole["ba_ms_per_iter"],
+        n_iters=sharded["n_iters"], points_per_rank=sharded["points_per_rank"],
+        collective_ms_per_iter=coll["ms"] / it, collective_bytes_per_iter=coll["bytes"] / it,
+        collective_calls_per_iter=coll["calls"] / it, cost=sharded["cost"],
+        noisy_cost=noisy["cost"], noisy_cost_unsharded=noisy_whole["cost"], ba=gaps)
+    log(f"[multi] {name} {json.dumps(out)} on {card}")
+    return out
+
+
+def run_multi_phase(device, card) -> dict:
+    """[multi]: (a) `dryrun_multichip(1)` and the noisy BA window on a real
+    NCCL group of one rank, the sharded association and BAs at production
+    shapes held against the unsharded port (exact; the BAs bit for bit);
+    (b) both over two gloo ranks on the one card (NCCL takes one rank per
+    card), association exact and the BAs within 1e-4 m with the same
+    cost and LM iterations; (c) the
+    sweep of two feature-path jobs over two ranks, merged on rank 0; (d)
+    `entry()` with K1/K2/K3 launched. Each rank is a process with its own
+    time limit; a failed rank fails the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gmmloc_tpu_torch import entry
+    from gmmloc_tpu_torch.eval import sweep
+
+    t_phase = time.perf_counter()
+    cam, gmm, pose, feat_uv, prob, L = entry.dryrun_inputs()
+    noisy = entry.noisy_window(prob)
+    torch.cuda.empty_cache()
+    whole = entry.unsharded(device, cam, gmm, pose, feat_uv, prob, L, entry.DRYRUN_ITERS)
+    noisy_whole = entry.unsharded(device, cam, None, None, None, noisy, L, entry.DRYRUN_ITERS)
+    log(f"[multi] unsharded: association {whole['assoc_ms']:.2f} ms, BA "
+        f"{whole['n_iters']} LM iterations at {whole['ba_ms_per_iter']:.3f} ms each "
+        f"(replayed from graphs), cost {whole['cost']:.6g}; noisy window "
+        f"{noisy_whole['n_iters']} LM iterations, cost {noisy_whole['cost']:.6g} on {card}")
+    out = {}
+    for key, name, n, backend in (("nccl1", "(a) NCCL, 1 rank", 1, "nccl"),
+                                  ("gloo2", "(b) gloo, 2 ranks on one card", 2, "gloo")):
+        t0 = time.perf_counter()
+        out[key] = _check_multi(
+            name, card, entry.dryrun_multichip(n, "cuda", backend=backend, timeout_s=300),
+            whole, entry.sharded_ba(n, "cuda", cam, noisy, L, backend=backend, timeout_s=300),
+            noisy_whole)
+        log(f"[time] [multi] {name[:3]} {time.perf_counter() - t0:.1f}s")
+
+    t0 = time.perf_counter()
+    sweep_dir = tempfile.mkdtemp(prefix="sweep_", dir=os.path.join(ROOT, "build"))
+    summ = sweep.main(["--spawn", "2", "--seeds", "0", "--runs", "2", "--frames",
+                       str(SWEEP_FRAMES), "--device", "cuda", "--out", sweep_dir,
+                       "--timeout", "400"])
+    if (summ["n_ranks"] != 2 or sorted(map(tuple, summ["jobs"])) != [(0, 0), (0, 1)]
+            or summ["max_err_m"] >= MAX_ERR_M):
+        raise RuntimeError(f"[multi] (c) sweep: {summ}")
+    out["sweep"] = summ
+    log(f"[multi] (c) sweep over 2 ranks, merged on rank 0: {json.dumps(summ)} on {card}")
+    log(f"[time] [multi] (c) {time.perf_counter() - t0:.1f}s")
+
+    fn, args = entry.entry(device)
+    fn(*args)
+    torch.cuda.synchronize()
+    reset_launches()
+    res = fn(*args).cpu().numpy()
+    launches = read_launches()
+    if not np.isfinite(res[:7]).all() or res[7] <= 0 or min(launches[k] for k in
+                                                          ("K1", "K2", "K3")) <= 0:
+        raise RuntimeError(f"[multi] (d) entry: pose {res[:7]}, inliers {res[7]}, "
+                           f"launches {launches}")
+    out["entry"] = dict(q=res[:4].tolist(), t=res[4:7].tolist(), inliers=int(res[7]),
+                        anchors=int(res[9]), launches=launches)
+    log(f"[multi] (d) entry: {json.dumps(out['entry'])} on {card}")
+    out["launches"] = {k: launches.get(k, 0) + summ["launches"].get(k, 0) for k in KERNELS}
+    log(f"[multi] {time.perf_counter() - t_phase:.1f}s on {card}")
+    return out
+
+
 def check_host_libs():
     """No PIL, PyYAML or matplotlib: the machines with the card have none."""
     mods = sorted(m for m in ("PIL", "yaml", "matplotlib") if m in sys.modules)
@@ -1125,6 +1250,8 @@ def main() -> int:
     disk = run_disk_phase(device, card, img_cfg, img_inputs, img_traj)
     check_host_libs()
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [disk]")
+    multi = run_multi_phase(device, card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [multi]")
     k3_paths = check_path_shapes(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)
@@ -1139,7 +1266,9 @@ def main() -> int:
                                   image=img_out["launches"][key],
                                   **{n: o["launches"][key] for n, o in prod.items()},
                                   **{n: disk[n]["launches"][key]
-                                     for n in ("disk", "disk_octree")}),
+                                     for n in ("disk", "disk_octree")},
+                                  entry=multi["entry"]["launches"][key],
+                                  multi=multi["launches"][key]),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], shape=k["shape"],

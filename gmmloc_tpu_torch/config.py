@@ -273,9 +273,9 @@ class TrackingConfig:
     max_jump_rot_deg: float = 8.0    # deg/frame (V1_03 max is 3.7)
     max_coast_frames: int = 2        # consecutive coasts before accepting
     # Staged pose-solve implementation inside the fused track step:
-    # "auto" = single-dispatch Pallas kernel on TPU (solver/pallas_pose.py,
-    # the whole 4x10 schedule in one program), XLA op chain elsewhere;
-    # "xla" / "pallas" force one.
+    # "auto" = the CUDA kernels K1/K2 on the card, their plain versions on
+    # the CPU; "pallas" = the kernels only; "xla" = the plain PyTorch
+    # solver (tracking/fused.pose_solvers).
     pose_impl: str = "auto"
     # Per-frame GMM structure anchoring in the final pose solve
     # (capability extension; see pose_solver.optimize_pose_anchored).

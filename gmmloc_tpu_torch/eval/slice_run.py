@@ -81,15 +81,17 @@ def production_config(online: bool, feat_cap: int | None = None,
 
 def make_world(cfg: SystemConfig, out_dir: str, n_frames: int,
                n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
-               device="cuda"):
+               device="cuda", sequence_seed: int | None = None):
     """Write the room fixture under out_dir (a trajectory of n_frames + 50
-    frames) and load the map on `device`. Returns (gmap, the synthetic
-    front end, ts, q_wc, t_wc)."""
+    frames) and load the map on `device`. The synthetic landmarks and
+    noise are drawn from `sequence_seed` (default `seed`). Returns (gmap,
+    the synthetic front end, ts, q_wc, t_wc)."""
     gmm_path, gt_path = room_fixture.write_room_fixture(
         out_dir, n_components=n_components, n_frames=n_frames + 50, seed=seed)
     fe, ts, q_wc, t_wc = synthetic.make_sequence(
         cfg, gt_path=gt_path, gmm_path=gmm_path, n_landmarks=n_landmarks,
-        seed=seed, disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1)
+        seed=seed if sequence_seed is None else sequence_seed, disp_noise=0.1,
+        pixel_noise=0.25, drop_frac=0.1)
     gmap = mixture.load(gmm_path, device,
                         pad_to=cfg.caps.gmm_components_pad,
                         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
@@ -99,11 +101,11 @@ def make_world(cfg: SystemConfig, out_dir: str, n_frames: int,
 
 def make_inputs(cfg: SystemConfig, out_dir: str, n_frames: int,
                 n_components: int = 3300, n_landmarks: int = 30000, seed: int = 0,
-                device="cuda"):
+                device="cuda", sequence_seed: int | None = None):
     """`make_world`, then every frame generated up front (the harness
     stays off the clock). Returns (gmap, frames, q_wc, t_wc)."""
     gmap, fe, ts, q_wc, t_wc = make_world(cfg, out_dir, n_frames, n_components,
-                                          n_landmarks, seed, device)
+                                          n_landmarks, seed, device, sequence_seed)
     frames = [fe.make_frame(i, ts[i], q_wc[i], t_wc[i]) for i in range(n_frames)]
     return gmap, frames, q_wc[:n_frames], t_wc[:n_frames]
 

@@ -21,6 +21,18 @@ HISTO_LENGTH = 30
 BIG = 1 << 20
 
 
+def fundamental_matrix(q1, t1, q2, t2, K1, K2):
+    """F with l2 = F^T p1 for poses T_c1_w, T_c2_w (ref
+    MathUtils::computeFundamentalMatrix, math_utils.cpp:17-44):
+    E = skew(t_c1_c2) @ R_c1_c2, F = K1^-T E K2^-1."""
+    from ..geometry import se3
+
+    q12 = se3.quat_mul(q1, se3.quat_conj(q2))
+    t12 = -se3.quat_rotate(q12, t2) + t1
+    E = se3.skew(t12) @ se3.quat_to_matrix(q12)
+    return torch.linalg.inv(K1).T @ E @ torch.linalg.inv(K2)
+
+
 def _two_smallest(dist):
     """(N,M) int -> (values (N,2), indices (N,2)) of the two smallest per
     row, lowest index first among ties (jax.lax.top_k(-dist, 2))."""

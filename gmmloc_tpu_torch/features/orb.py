@@ -2,8 +2,9 @@
 
 PyTorch port of `gmmloc_tpu/features/orb.py` (ref ORBextractor
 IC_Angle:77-101, computeOrbDescriptor:104-146): the atlas forms that
-detection runs (`ic_angle_atlas`, `brief_descriptors_atlas`); the JAX
-module's per-level patch forms have no caller and are not ported. The
+detection runs (`ic_angle_atlas`, `brief_descriptors_atlas`), and the
+JAX module's per-level forms (`gather_patches`, `ic_angle`,
+`brief_descriptors`), which no caller in either package uses. The
 256 test pairs are the JAX package's procedural BRIEF G-II pattern (numpy
 `default_rng` with the same seed, so the same pairs), not OpenCV's
 bit_pattern_31.
@@ -58,6 +59,27 @@ def _circle_mask():
 
 CIRCLE = _circle_mask()
 _BIT_WEIGHTS = [1, 2, 4, 8, 16, 32, 64, 128]
+
+
+def gather_patches(img, uv):
+    """The 31x31 patches (N, 31, 31) around keypoints rounded to integer
+    pixels, clamped a patch radius inside the image."""
+    h, w = img.shape
+    ys = torch.clamp(torch.round(uv[:, 1]).to(torch.int64), PATCH_R, h - PATCH_R - 1)
+    xs = torch.clamp(torch.round(uv[:, 0]).to(torch.int64), PATCH_R, w - PATCH_R - 1)
+    d = torch.arange(-PATCH_R, PATCH_R + 1, device=img.device)
+    return img[ys[:, None, None] + d[None, :, None], xs[:, None, None] + d[None, None, :]]
+
+
+def ic_angle(img, uv):
+    """Intensity-centroid orientation in degrees of keypoints on one image
+    (IC_Angle, :77-101), from their 31x31 patches."""
+    patches = gather_patches(img, uv)
+    mask = torch.from_numpy(CIRCLE).to(img.device)
+    r = torch.arange(-PATCH_R, PATCH_R + 1, dtype=torch.float32, device=img.device)
+    m01 = torch.sum(patches * mask * r[:, None], dim=(1, 2))
+    m10 = torch.sum(patches * mask * r[None, :], dim=(1, 2))
+    return _angle_deg(m01, m10)
 
 
 def _seq_cumsum(x):
@@ -157,6 +179,14 @@ def _pack_bits(vals):
     bits = (vals[:, :, 0] < vals[:, :, 1]).to(torch.uint8).reshape(-1, 32, 8)
     w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=vals.device)
     return torch.sum(bits * w, dim=-1).to(torch.uint8)
+
+
+def brief_descriptors(img_blur, uv, angle_deg):
+    """Steered BRIEF-256 -> (N, 32) uint8 on one blurred image, test points
+    read with nearest sampling (computeOrbDescriptor:104-146)."""
+    h, w = img_blur.shape
+    xs, ys = _steered_points(uv, angle_deg)
+    return _pack_bits(img_blur[torch.clamp(ys, 0, h - 1), torch.clamp(xs, 0, w - 1)])
 
 
 def brief_descriptors_atlas(atlas_blur, uv, angle_deg, y_off, h_v, w_v):

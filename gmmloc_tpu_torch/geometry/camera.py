@@ -6,6 +6,7 @@ leading dims; visibility is a boolean mask.
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -67,3 +68,16 @@ def unproject(cam: CameraParams, uv, depth):
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def disparity_to_depth(cam: CameraParams, disparity):
+    """Depth bf / disparity; 0 where the disparity is <= 0."""
+    d = torch.where(disparity <= 0.0, torch.full_like(disparity, math.inf), disparity)
+    return cam.bf / d
+
+
+def depth_to_uright(cam: CameraParams, u, depth):
+    """The right-image column of a point at `depth` seen at column u (u
+    itself where depth <= 0)."""
+    z = torch.where(depth <= 0.0, torch.full_like(depth, math.inf), depth)
+    return u - cam.bf / z

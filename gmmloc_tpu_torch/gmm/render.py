@@ -29,16 +29,24 @@ class Render2D(NamedTuple):
     visible: torch.Tensor    # (K,) bool, survived every gate incl. occlusion
 
 
-def render_view(gmap, cam: cam_mod.CameraParams, q_cw, t_cw,
-                view_cos_deg: float = 78.0, cov2d_scale_thresh: float = 4.0,
-                occlusion_bh_thresh: float = 0.8, block: int = 512) -> Render2D:
-    """Project all components with the gates of renderView, in order:
-    view-cos of degenerate normals, mean inside the image with z > 0,
-    2-D scale (max eigenvalue >= thresh), then occlusion: i is dropped if
-    a visible j overlaps it (BH2d < thresh) and is strictly nearer (ties
-    by index)."""
+class Projected(NamedTuple):
+    """The per-component half of `render_view`: each component's own
+    gates, before occlusion."""
+
+    uv: torch.Tensor         # (K,2)
+    cov2d: torch.Tensor      # (K,2,2)
+    depth: torch.Tensor      # (K,)
+    alive: torch.Tensor      # (K,) bool: valid, view-cos, in view, 2-D scale
+
+
+def project_components(gmap, cam: cam_mod.CameraParams, q_cw, t_cw,
+                       view_cos_deg: float = 78.0,
+                       cov2d_scale_thresh: float = 4.0) -> Projected:
+    """Project every component of `gmap` and apply the per-component gates
+    of renderView, in order: view-cos of degenerate normals, mean inside
+    the image with z > 0, 2-D scale (max eigenvalue >= thresh). Each row
+    depends on its own component only."""
     means = gmap.means
-    K = means.shape[0]
     _, t_wc = se3.inverse(q_cw, t_cw)
     po = means - t_wc
     po = po / torch.clamp(torch.linalg.norm(po, dim=-1, keepdim=True), min=1e-12)
@@ -53,15 +61,25 @@ def render_view(gmap, cam: cam_mod.CameraParams, q_cw, t_cw,
     cov2d = JR @ gmap.covs @ JR.transpose(-1, -2)
     scale2d, _ = gaussian.eig2x2(cov2d)
     pass_scale = scale2d[..., 1] >= cov2d_scale_thresh
-    depth = pc[..., 2]
     alive = gmap.valid & pass_viewcos & vis_proj & pass_scale
+    return Projected(uv, cov2d, pc[..., 2], alive)
 
-    ca, cb, cc = cov2d[:, 0, 0], cov2d[:, 0, 1], cov2d[:, 1, 1]
+
+def occluded_rows(uv, ca, cb, cc, depth, alive, rows: tuple[int, int],
+                  occlusion_bh_thresh: float = 0.8, block: int = 512):
+    """The occlusion pass for components rows[0]..rows[1]-1 against all K
+    (the arrays are global: uv (K,2), the cov2d entries ca = [0,0],
+    cb = [0,1], cc = [1,1], depth, alive): i is occluded if an alive j
+    overlaps it (BH2d < thresh) and is strictly nearer (ties by index).
+    Elementwise in blocks of rows, so any split of the rows gives the
+    same flags. Returns (rows[1] - rows[0],) bool."""
+    K = uv.shape[0]
+    r0, r1 = rows
     det = torch.clamp(ca * cc - cb * cb, min=1e-30)
-    idx = torch.arange(K, device=means.device)
-    occluded = torch.zeros(K, dtype=torch.bool, device=means.device)
-    for s in range(0, K, block):
-        e = min(s + block, K)
+    idx = torch.arange(K, device=uv.device)
+    occluded = torch.zeros(r1 - r0, dtype=torch.bool, device=uv.device)
+    for s in range(r0, r1, block):
+        e = min(s + block, r1)
         A = 0.5 * (ca[s:e, None] + ca[None, :])
         B = 0.5 * (cb[s:e, None] + cb[None, :])
         C = 0.5 * (cc[s:e, None] + cc[None, :])
@@ -75,10 +93,22 @@ def render_view(gmap, cam: cam_mod.CameraParams, q_cw, t_cw,
         d_b = depth[s:e, None]
         i_b = idx[s:e, None]
         nearer = (depth[None, :] < d_b) | ((depth[None, :] == d_b) & (idx[None, :] < i_b))
-        occluded[s:e] = torch.any(overlap & nearer & (idx[None, :] != i_b), dim=1)
-    visible = alive & ~occluded
-    cov2d_inv, _ = gaussian.inv2x2(cov2d)
-    return Render2D(uv, cov2d, cov2d_inv, depth, visible)
+        occluded[s - r0:e - r0] = torch.any(overlap & nearer & (idx[None, :] != i_b), dim=1)
+    return occluded
+
+
+def render_view(gmap, cam: cam_mod.CameraParams, q_cw, t_cw,
+                view_cos_deg: float = 78.0, cov2d_scale_thresh: float = 4.0,
+                occlusion_bh_thresh: float = 0.8, block: int = 512) -> Render2D:
+    """Project all components with the gates of renderView
+    (`project_components`), then occlusion over every row
+    (`occluded_rows`)."""
+    pr = project_components(gmap, cam, q_cw, t_cw, view_cos_deg, cov2d_scale_thresh)
+    c = pr.cov2d
+    occluded = occluded_rows(pr.uv, c[:, 0, 0], c[:, 0, 1], c[:, 1, 1], pr.depth, pr.alive,
+                             (0, pr.uv.shape[0]), occlusion_bh_thresh, block)
+    cov2d_inv, _ = gaussian.inv2x2(c)
+    return Render2D(pr.uv, c, cov2d_inv, pr.depth, pr.alive & ~occluded)
 
 
 def search_correspondence(render: Render2D, feat_uv, feat_valid, knn: int = 5,

@@ -28,9 +28,10 @@ PyTorch port of `gmmloc_tpu/pipeline/system.py` (ref gmmloc.cpp spin
   - `fused_kf_assoc=False` selects the host-orchestrated keyframe
     association (`GMMAssociator.associate_keyframe`).
 
-Still raising: `ba_schur_impl` "flat" or "blockdiag" (the system stages
-the local BA in bfloat16, and their rounding is not ported) and a
-`pose_impl` other than "auto" (the tracker).
+  - `ba_schur_impl` picks the local BA's layout ("flatpm", "flat",
+    "blockdiag", each at its own bfloat16 rounding points); `pose_impl`
+    the fused track step's pose solver (`tracking/fused.pose_solvers`).
+    An unknown name of either raises.
 """
 
 from __future__ import annotations
@@ -72,8 +73,7 @@ def set_numerics() -> None:
 class GMMLocSystem:
     def __init__(self, cfg: SystemConfig, gmap: mixture.GMMMap, device="cuda",
                  vocabulary=None):
-        # the local BA stages in bfloat16 (solve_local_ba's default)
-        check_schur_impl(cfg.loc.ba_schur_impl, use_bf16=True)
+        check_schur_impl(cfg.loc.ba_schur_impl)
         set_numerics()
         self.cfg = cfg
         self.device = resolve(device)

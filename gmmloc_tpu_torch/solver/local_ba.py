@@ -17,9 +17,9 @@ One Schur path: points are eliminated per point (dense 3x3), the camera
 blocks are block-diagonal sums over observations (one-hot contractions,
 no scatters), the reduced (6L x 6L) system is solved by LU. The JAX
 package's "flatpm", "flat" and "blockdiag" are TPU layouts of this same
-math and select this path at float32. The residual/Jacobian products at
-the accepted state are carried, so one LM iteration makes one pass at the
-proposed state, whose chi2 is also the accept-test cost.
+math; at float32 the three names run this one path. The residual/Jacobian
+products at the accepted state are carried, so one LM iteration makes one
+pass at the proposed state, whose chi2 is also the accept-test cost.
 
 `linear_solver="cg"` solves the reduced system by a fixed-count
 Jacobi-preconditioned CG, as the JAX package does on its "flat" and
@@ -27,25 +27,52 @@ Jacobi-preconditioned CG, as the JAX package does on its "flat" and
 "cg" with "flatpm" runs LU here too.
 
 With `use_bf16` (the default, as in the JAX package) the Hessian products
-are staged in bfloat16 where the JAX "flatpm" path holds bfloat16 values:
-the carried residuals and Jacobians, sqrt(w), the weighted rows, and the
-sums over the three residual rows that feed H_pp, b_p and U, each term
-and partial sum rounded. XLA runs the last bfloat16 operation before a
-float32 consumer in float32, so the port does too: the last add of the
-H_pp and b_p row sums, and the weighted residual that b_c reads. Each
-rounding goes through `torch.bfloat16` and back; every reduction over
-observations and everything after it is float32 (a product of two
-bfloat16 values is exact in float32). chi2 and the LM accept cost are
-exact float32. The JAX "flat" and "blockdiag" paths round at other
-points; their bfloat16 staging is not ported, so "flat" or "blockdiag"
-with `use_bf16` raises (`check_schur_impl`).
+are staged in bfloat16: the carried residuals and Jacobians are rounded,
+and each layout rounds where XLA's CPU compiler rounds the JAX layout's
+chains (`tests/test_torch_ba.py`, bit for bit on the same values):
+
+  - "flatpm" holds bfloat16 values for sqrt(w), the weighted rows, and the
+    sums over the three residual rows that feed H_pp, b_p and U, each term
+    and partial sum rounded; XLA runs the last bfloat16 operation before a
+    float32 consumer in float32, so the port does too: the last add of the
+    H_pp and b_p row sums, and the weighted residual that b_c reads;
+  - "flat" rounds w; its weighted camera rows Z*W are rounded where H_cc
+    and b_c read them and float32 where U reads them (XLA fuses that
+    product into U's dot); H_pp and b_p are exact products of the
+    bfloat16 factors;
+  - "blockdiag" rounds w and each observation's products Jc^T W Jc,
+    Jc^T W Jp and Jc^T W r (summed over the three rows in float32); its
+    weighted rows and H_pp, b_p are as "flat"'s.
+
+Each rounding goes through `torch.bfloat16` and back. Every reduction over
+observations and everything after it is float32 (a product of two or three
+bfloat16 values is exact in float32), apart from the sums of the hook
+below. chi2 and the LM accept cost are
+exact float32.
+
+`reduce_sum` is the hook of the sharded solve (`parallel/sharding.py`):
+with points and observations split over ranks, every sum over them (H_cc,
+b_c, the Schur term T^T U, T b_p and the observation and structure costs)
+goes through it once per LM iteration and comes back summed over the
+ranks, so every rank takes the same accept and stop decisions. Point
+blocks, the back-substitution and the stage gates stay per point; the
+prior is added once, after the sum. With the hook those sums accumulate
+in float64 and round to float32 once, after it: in float32 their value
+hangs on the order of the terms, and the order alone moves the staged
+LM's early stop by iterations and weakly held points by millimetres (the
+JAX package's own unsharded solve does so when its points are permuted;
+PERF.md), so a sharded solve would not take the whole solve's steps. In
+float64 a solve with its points split over ranks takes the steps of the
+whole solve with an identity hook, bit for bit unless a sum lands within
+float64's error of a float32 rounding boundary. Without the hook they
+accumulate in float32, as the JAX package's, and no collective runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -63,16 +90,11 @@ SCHUR_IMPLS = ("flatpm", "flat", "blockdiag")
 LINEAR_SOLVERS = ("lu", "cg")
 
 
-def check_schur_impl(schur_impl: str, use_bf16: bool) -> None:
-    """Raise on a Schur layout the port does not run: an unknown name, or
-    "flat"/"blockdiag" with bfloat16 staging, whose rounding points
-    differ from "flatpm"'s and are not ported (ROADMAP queue 3 p)."""
+def check_schur_impl(schur_impl: str) -> None:
+    """Raise on a Schur layout name the port does not know. (The JAX
+    package sends any other name to its one-hot einsum branch.)"""
     if schur_impl not in SCHUR_IMPLS:
         raise ValueError(f"unknown ba_schur_impl {schur_impl!r}; one of {SCHUR_IMPLS}")
-    if use_bf16 and schur_impl != "flatpm":
-        raise ValueError(
-            f"ba_schur_impl {schur_impl!r} with bfloat16 staging is not ported "
-            "(its rounding points differ from 'flatpm'; ROADMAP queue 3 p)")
 
 
 class BAProblem(NamedTuple):
@@ -183,6 +205,52 @@ def _row_sum(x, rnd, round_last: bool = True):
     return rnd(s) if round_last else s
 
 
+def _weighted_flatpm(r, Jc, Jp, w, rnd):
+    """The weighted per-observation products at "flatpm"'s rounding points
+    (module docstring): (H_pp, b_p, JWJc (P,MO,6,6), JWJp (P,MO,6,3), JWr
+    (P,MO,6)). At float32 (`rnd` the identity) every layout runs this."""
+    # weighted rows r*sqrt(w), J*sqrt(w) (P,MO,3,...); rw32 is the float32
+    # product that b_c reads
+    sqw = rnd(torch.sqrt(w))
+    rw32 = r * sqw[..., None]
+    rw = rnd(rw32)
+    Jcw = rnd(Jc * sqw[..., None, None])
+    Jpw = rnd(Jp * sqw[..., None, None])
+    # point blocks: row sums in the staging type, float32 over MO
+    H_pp = _row_sum(Jpw[..., :, None] * Jpw[..., None, :], rnd, False).sum(1)
+    b_p = _row_sum(Jpw * rw[..., None], rnd, False).sum(1)
+    JWJc = torch.einsum("pmai,pmaj->pmij", Jcw, Jcw)
+    JWJp = _row_sum(Jcw[..., :, None] * Jpw[..., None, :], rnd)
+    JWr = torch.einsum("pmai,pma->pmi", Jcw, rw32)
+    return H_pp, b_p, JWJc, JWJp, JWr
+
+
+def _unrounded(x):
+    return x
+
+
+def _weighted_bf16(layout, r, Jc, Jp, w):
+    """The weighted per-observation products of "flat" or "blockdiag" at
+    bfloat16 staging (module docstring), as `_weighted_flatpm` returns
+    them. Sums over the three residual rows run ((0 + 1) + 2) in float32."""
+    wb = _bf16_round(w)[..., None, None]
+    Jpw = Jp * wb                  # exact: two bfloat16 factors
+    H_pp = _row_sum(Jpw[..., :, None] * Jp[..., None, :], _unrounded).sum(1)
+    b_p = _row_sum(Jpw * r[..., None], _unrounded).sum(1)
+    Jcw = Jc * wb
+    if layout == "flat":
+        Jcw_r = _bf16_round(Jcw)
+        JWJc = _row_sum(Jcw_r[..., :, None] * Jc[..., None, :], _unrounded)
+        JWr = _row_sum(Jcw_r * r[..., None], _unrounded)
+        JWJp = _row_sum(Jcw[..., :, None] * Jp[..., None, :], _unrounded)
+    else:
+        # each observation's float32 product, rounded once
+        JWJc = _bf16_round(_row_sum(Jcw[..., :, None] * Jc[..., None, :], _unrounded))
+        JWr = _bf16_round(_row_sum(Jcw * r[..., None], _unrounded))
+        JWJp = _bf16_round(_row_sum(Jcw[..., :, None] * Jp[..., None, :], _unrounded))
+    return H_pp, b_p, JWJc, JWJp, JWr
+
+
 def _prior_cost(prob: BAProblem, cam_q, cam_t, info):
     """First-KF SE3 prior (localization_opt.cpp:558-582) with the (6,)
     information vector `info`: its residual, weight (0 without a prior)
@@ -199,6 +267,14 @@ def _prior_terms(prob: BAProblem, cam_q, cam_t, info):
     H = w * torch.einsum("ij,i,ik->jk", J, info, J)
     b = w * torch.einsum("ij,i,i->j", J, info, r)
     return H, b
+
+
+def _sum_over_ranks(reduce_sum, *xs):
+    """xs summed over the ranks through one call of `reduce_sum` on their
+    concatenation."""
+    flat = reduce_sum(torch.cat([x.reshape(-1) for x in xs]))
+    return [part.reshape(x.shape) for part, x in
+            zip(torch.split(flat, [x.numel() for x in xs]), xs)]
 
 
 def _pcg_solve(S, b, iters: int):
@@ -240,10 +316,11 @@ def solve_local_ba(
     iters3: int = 40,
     term_gain: float = 1e-5,
     use_bf16: bool = True,
-    schur_impl: str = "flatpm",
+    schur_impl: str = "flat",
     linear_solver: str = "lu",
     cg_iters: int = 48,
     cuda_graph: bool = True,
+    reduce_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> BAResult:
     """Staged Schur-complement LM over a fixed-capacity window. Each stage
     stops early when an accepted step gains less than `term_gain`
@@ -257,8 +334,13 @@ def solve_local_ba(
     launch takes and hands back the GIL, which a tracker thread launching
     beside the mapper makes several times dearer (tools/gil_probe.py).
     The replay runs the captured kernels on the same values, so the
-    stages take the same steps."""
-    check_schur_impl(schur_impl, use_bf16)
+    stages take the same steps.
+
+    `reduce_sum(t)` returns t summed over the ranks of a sharded solve;
+    with it the sums over points and observations accumulate in float64
+    (module docstring). A collective cannot be captured in a graph: the
+    sharded solve passes `cuda_graph=False`."""
+    check_schur_impl(schur_impl)
     if linear_solver not in LINEAR_SOLVERS:
         raise ValueError(f"unknown ba_linear_solver {linear_solver!r}; one of "
                          f"{LINEAR_SOLVERS}")
@@ -285,7 +367,8 @@ def solve_local_ba(
     fixed_rows = fix6[:, None] | fix6[None, :]
     eye6L = torch.eye(6 * L, dtype=dtype, device=dev)
     pt_valid = prob.pt_valid
-    rnd = _bf16_round if use_bf16 else (lambda x: x)
+    rnd = _bf16_round if use_bf16 else _unrounded
+    acc = dtype if reduce_sum is None else torch.float64
     prior_info = torch.tensor([prior_rot_info] * 3 + [prior_trans_info] * 3,
                               dtype=dtype, device=dev)
 
@@ -300,52 +383,51 @@ def solve_local_ba(
         if use_huber:
             rho = torch.where(s > d * d,
                               2.0 * d * torch.sqrt(torch.clamp(s, min=1e-24)) - d * d, s)
-        c_obs = torch.sum(torch.where(active_obs, rho, 0.0))
+        c_obs = torch.sum(torch.where(active_obs, rho, 0.0), dtype=acc)
         _, _, c_str = _gmm_terms(prob, pts, ba_lambda2, active_str)
         c_pri = _prior_cost(prob, cam_q, cam_t, prior_info)[2]
-        return c_obs + torch.sum(torch.where(pt_valid, c_str, 0.0)) + c_pri
+        c_pts = c_obs + torch.sum(torch.where(pt_valid, c_str, 0.0), dtype=acc)
+        if reduce_sum is not None:
+            c_pts = reduce_sum(c_pts)
+        return c_pts.to(dtype) + c_pri
 
     def lm_step(products, cam_q, cam_t, pts, lam, active_obs, active_str, use_huber):
         r, Jc, Jp, chi2, _ = products
         w = prob.obs_sigma2_inv * active_obs.to(dtype)
         if use_huber:
             w = w * factors.huber_weight(chi2, huber_delta)
-        # weighted rows r*sqrt(w), J*sqrt(w) (P,MO,3,...); rw32 is the
-        # float32 product that b_c reads
-        sqw = rnd(torch.sqrt(w))
-        rw32 = r * sqw[..., None]
-        rw = rnd(rw32)
-        Jcw = rnd(Jc * sqw[..., None, None])
-        Jpw = rnd(Jp * sqw[..., None, None])
-        # point blocks: row sums in the staging type, float32 over MO
-        H_pp = _row_sum(Jpw[..., :, None] * Jpw[..., None, :], rnd, False).sum(1)
-        b_p = _row_sum(Jpw * rw[..., None], rnd, False).sum(1)
+        if use_bf16 and schur_impl != "flatpm":
+            H_pp, b_p, JWJc, JWJp, JWr = _weighted_bf16(schur_impl, r, Jc, Jp, w)
+        else:
+            H_pp, b_p, JWJc, JWJp, JWr = _weighted_flatpm(r, Jc, Jp, w, rnd)
         H_str, b_str, _ = _gmm_terms(prob, pts, ba_lambda2, active_str)
         H_pp = H_pp + torch.where(pt_valid[:, None, None], H_str, 0.0)
         b_p = b_p + torch.where(pt_valid[:, None], b_str, 0.0)
-        H_pri, b_pri = _prior_terms(prob, cam_q, cam_t, prior_info)
         tr_p = H_pp.diagonal(dim1=-2, dim2=-1).sum(-1)
         H_pp_d = H_pp + lam * (tr_p[:, None, None] / 3.0 + 1e-9) * eye3
         H_pp_d = torch.where(pt_valid[:, None, None], H_pp_d, eye3)
         Hpp_inv, _ = _inv3(H_pp_d)
 
-        # camera blocks: per-observation products, then one-hot sums
-        JWJc = torch.einsum("pmai,pmaj->pmij", Jcw, Jcw).reshape(P * MO, 36)
-        JWJp = _row_sum(Jcw[..., :, None] * Jpw[..., None, :], rnd)  # (P,MO,6,3)
-        JWr = torch.einsum("pmai,pma->pmi", Jcw, rw32).reshape(P * MO, 6)
-        oh = onehot.reshape(P * MO, L)
-        H_cc = (oh.T @ JWJc).reshape(L, 6, 6)
-        b_c = oh.T @ JWr                                             # (L,6)
-        H_cc[0] += H_pri
-        b_c[0] += b_pri
+        # camera blocks: one-hot sums of the per-observation products
+        oh = onehot.reshape(P * MO, L).to(acc)
+        H_cc = (oh.T @ JWJc.reshape(P * MO, 36).to(acc)).reshape(L, 6, 6)
+        b_c = oh.T @ JWr.reshape(P * MO, 6).to(acc)                  # (L,6)
         U = torch.einsum("pml,pmij->plij", onehot, JWJp).reshape(P, 6 * L, 3)
         T = U @ Hpp_inv                                              # (P,6L,3)
-        S = -(T.permute(1, 0, 2).reshape(6 * L, 3 * P)
-              @ U.permute(1, 0, 2).reshape(6 * L, 3 * P).T)
+        TU = (T.permute(1, 0, 2).reshape(6 * L, 3 * P).to(acc)
+              @ U.permute(1, 0, 2).reshape(6 * L, 3 * P).T.to(acc))
+        Tb = torch.einsum("pcj,pj->c", T.to(acc), b_p.to(acc))
+        if reduce_sum is not None:
+            H_cc, b_c, TU, Tb = _sum_over_ranks(reduce_sum, H_cc, b_c, TU, Tb)
+        H_cc, b_c, TU, Tb = (x.to(dtype) for x in (H_cc, b_c, TU, Tb))
+        H_pri, b_pri = _prior_terms(prob, cam_q, cam_t, prior_info)
+        H_cc[0] += H_pri
+        b_c[0] += b_pri
+        S = -TU
         tr_c = H_cc.diagonal(dim1=-2, dim2=-1).sum(-1)
         H_cc_d = H_cc + lam * (tr_c[:, None, None] / 6.0 + 1e-9) * eye6
         S = S + torch.block_diag(*H_cc_d)
-        b_red = b_c.reshape(-1) - torch.einsum("pcj,pj->c", T, b_p)
+        b_red = b_c.reshape(-1) - Tb
         S = torch.where(fixed_rows, eye6L, S)
         b_flat = torch.where(fix6, 0.0, b_red)
         if use_cg:
@@ -447,3 +529,33 @@ def solve_local_ba(
     cost_f = cost_from(state[3], cam_q_f, cam_t_f, pts_f, active_obs, active_str, False)
     return BAResult(cam_q_f, cam_t_f, pts_f, obs_bad, str_drop, chi2_f, cost_f,
                     state[5])
+
+
+def solve_local_ba_batch(
+    cam,
+    probs: BAProblem,
+    n_free: int,
+    ba_lambda2: float = 400.0,
+    tri_str_thresh: float = 0.0064,
+    iters1: int = 5,
+    iters2: int = 5,
+    iters3: int = 40,
+    use_bf16: bool = True,
+    schur_impl: str = "flat",
+    linear_solver: str = "lu",
+) -> BAResult:
+    """B independent windows of one signature (a leading batch axis on
+    every field of `probs`), each solved on its own. The JAX package vmaps
+    a lock-step LM whose per-window accept masks give each window its solo
+    result; here the windows run one after the other. The result's fields
+    carry the batch axis, `n_iters` as a (B,) int64 tensor."""
+    outs = [
+        solve_local_ba(cam, BAProblem(*(x[b] for x in probs)), n_free,
+                       ba_lambda2=ba_lambda2, tri_str_thresh=tri_str_thresh,
+                       iters1=iters1, iters2=iters2, iters3=iters3, use_bf16=use_bf16,
+                       schur_impl=schur_impl, linear_solver=linear_solver)
+        for b in range(probs.pts.shape[0])
+    ]
+    return BAResult(*(torch.stack([getattr(o, k) for o in outs])
+                      for k in BAResult._fields[:-1]),
+                    torch.tensor([o.n_iters for o in outs], dtype=torch.int64))

@@ -58,6 +58,34 @@ def _scatter_slots(match, n_feat):
     return out.index_put((tgt,), q)[:n_feat]
 
 
+POSE_IMPLS = ("auto", "pallas", "xla")
+
+
+def pose_solvers(pose_impl: str):
+    """(optimize_pose, optimize_pose_anchored) for the JAX package's
+    `pose_impl` knob: "auto" the wrappers of the kernels K1/K2 (the kernel
+    on a CUDA tensor, the plain version on a CPU tensor); "pallas" the
+    kernels only (a CPU tensor raises: a CUDA kernel has no interpret
+    mode); "xla" the plain PyTorch solver on any device. Any other name
+    raises, where the JAX package falls back silently (ROADMAP queue 3 c)."""
+    if pose_impl == "auto":
+        return cuda_pose.optimize_pose, cuda_pose.optimize_pose_anchored
+    if pose_impl == "xla":
+        return pose_solver.optimize_pose, pose_solver.optimize_pose_anchored
+    if pose_impl == "pallas":
+        return _kernel_only(cuda_pose.optimize_pose), _kernel_only(cuda_pose.optimize_pose_anchored)
+    raise ValueError(f"unknown pose_impl {pose_impl!r}; one of {POSE_IMPLS}")
+
+
+def _kernel_only(solve):
+    def launch(cam, q0, t0, x_w, *args, **kw):
+        if x_w.device.type != "cuda":
+            raise ValueError(f"pose_impl 'pallas' launches the CUDA kernel; the features "
+                             f"are on {x_w.device}")
+        return solve(cam, q0, t0, x_w, *args, **kw)
+    return launch
+
+
 def track_core(
     cam: cam_mod.CameraParams,
     q0, t0,
@@ -78,9 +106,12 @@ def track_core(
     anchor_lambda2: float = 400.0,
     anchor_chi2_gate: float = 2.56,
     anchor_min_edges: int = 10,
+    pose_impl: str = "auto",
 ) -> FusedTrackResult:
     """One frame's track step; octave tensors are int64, the rest as in
-    the JAX `_track_core`."""
+    the JAX `_track_core`. `pose_impl` picks the pose solver
+    (`pose_solvers`)."""
+    opt_pose, opt_pose_anchored = pose_solvers(pose_impl)
     F = feat_uv.shape[0]
     P = map_pts.shape[0]
     dev = feat_uv.device
@@ -114,7 +145,7 @@ def track_core(
     x1 = last_pts[torch.clamp(feat_point, min=0)]
     obs = torch.cat([feat_uv, feat_ur[:, None]], -1)
     is_stereo = feat_ur >= 0
-    res1 = cuda_pose.optimize_pose(
+    res1 = opt_pose(
         cam, q0, t0, x1, obs, is_stereo, feat_sigma2_inv, has1 & feat_valid)
     inl1 = has1 & feat_valid & ~res1.is_outlier
 
@@ -177,14 +208,14 @@ def track_core(
         zc = torch.clamp(zs, min=1.0)
         a_weight = torch.where(a_type == pose_solver.ANCHOR_DEG,
                                anchor_lambda2 * zc * zc, 1.0).to(torch.float32)
-        res2 = cuda_pose.optimize_pose_anchored(
+        res2 = opt_pose_anchored(
             cam, q1, t1, x2, obs, is_stereo, feat_sigma2_inv, has & feat_valid,
             anc_xc.contiguous(), a_mean.contiguous(), a_norm.contiguous(),
             a_sqi.contiguous(), a_type, a_weight, float(anchor_chi2_gate),
         )
         n_anc = res2.num_anchors
     else:
-        res2 = cuda_pose.optimize_pose(
+        res2 = opt_pose(
             cam, q1, t1, x2, obs, is_stereo, feat_sigma2_inv, has & feat_valid)
         n_anc = torch.zeros((), dtype=torch.int32, device=dev)
     inliers = has & feat_valid & ~res2.is_outlier
@@ -241,6 +272,7 @@ def fused_track_step_packed(
     anchor_lambda2: float = 400.0,
     anchor_chi2_gate: float = 2.56,
     anchor_min_edges: int = 10,
+    pose_impl: str = "auto",
 ):
     """track_core on packed tables. Returns ONE float32 vector
     [q(4) t(3) n_inl n_motion n_anc | feat_point(F) | from_local(F) |
@@ -288,7 +320,8 @@ def fused_track_step_packed(
         map_tab[:, 0:3], desc_bits(map_tab, MAP_DESC), map_tab[:, 3:6], map_tab[:, 6],
         map_tab[:, 7], map_valid,
         scale_factors, log_scale_factor, num_levels,
-        motion_radius=motion_radius, local_radius=local_radius, **anc_kw,
+        motion_radius=motion_radius, local_radius=local_radius, pose_impl=pose_impl,
+        **anc_kw,
     )
     f32 = torch.float32
     return torch.cat([
@@ -430,6 +463,7 @@ def fused_track_step_chained(
     temp_cap: int = 100,
     motion_radius: float = 7.0,
     local_radius: float = 3.0,
+    pose_impl: str = "auto",
 ):
     """Chained packed track step. Returns (out_ext, dyn, vel, pose_prev):
     out_ext = the packed result + [q_pred(4) t_pred(3)]; dyn and vel feed
@@ -445,7 +479,7 @@ def fused_track_step_chained(
         cam, scal, cur, prev_cur, dyn, map_tab, gmm_tab, scale_factors,
         log_scale_factor, num_levels, use_anchors=use_anchors, map_is_stale=True,
         anchor_lambda2=anchor_lambda2, anchor_chi2_gate=anchor_chi2_gate,
-        anchor_min_edges=anchor_min_edges)
+        anchor_min_edges=anchor_min_edges, pose_impl=pose_impl)
     return torch.cat([out, q0, t0]), dyn, vel_new, prev_out[0:7]
 
 

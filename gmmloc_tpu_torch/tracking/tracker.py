@@ -84,11 +84,7 @@ class FusedPending:
 class Tracker:
     def __init__(self, cfg: SystemConfig, cam: cam_mod.CameraParams,
                  world: MapState, device, gmm_views: Optional[dict] = None):
-        if cfg.tracking.pose_impl != "auto":
-            raise ValueError(
-                f"pose_impl {cfg.tracking.pose_impl!r}: the port has one pose "
-                "solver per device (the kernel on CUDA, the plain version on "
-                "the CPU); only 'auto' is accepted")
+        fused.pose_solvers(cfg.tracking.pose_impl)     # an unknown name raises
         self.cfg = cfg
         self.cam = cam
         self.world = world
@@ -618,6 +614,7 @@ class Tracker:
                 anchor_chi2_gate=float(tk.anchor_chi2_gate),
                 anchor_min_edges=int(tk.anchor_min_edges),
             )
+        anc_kw["pose_impl"] = tk.pose_impl
         th_local = 5.0 if frame.idx < 2 else tk.local_search_radius
         t = self._t
         t_prep.stop()
@@ -717,7 +714,7 @@ class Tracker:
         return dict(use_anchors=tk.use_gmm_pose_anchor and self.gmm_views is not None,
                     anchor_lambda2=float(tk.anchor_lambda2),
                     anchor_chi2_gate=float(tk.anchor_chi2_gate),
-                    anchor_min_edges=int(tk.anchor_min_edges))
+                    anchor_min_edges=int(tk.anchor_min_edges), pose_impl=tk.pose_impl)
 
     def _dispatch_packed(self, frame, last, q_has, last_pts, lp, t_prep,
                          prime_chain: bool) -> FusedPending:

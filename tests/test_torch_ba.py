@@ -171,7 +171,8 @@ def test_local_ba_bf16_matches_reference(seed):
     jprob = jba.BAProblem(**_as("jax", d))
     ref = jba.solve_local_ba(jc, jprob, schur_impl="flatpm", **BA_ITERS)
     ref_flat = jba.solve_local_ba(jc, jprob, schur_impl="flat", **BA_ITERS)
-    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), **BA_ITERS)
+    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), schur_impl="flatpm",
+                             **BA_ITERS)
     spread = _ba_distance(ref_flat, ref, d["obs_valid"])
     dist = _ba_distance(out, ref, d["obs_valid"])
     floor = dict(cost=1e-5, cam_t=1e-5, pts=1e-4)
@@ -229,10 +230,20 @@ def test_local_ba_bf16_is_the_default():
         assert inspect.signature(fn).parameters["use_bf16"].default is True
 
 
+def test_local_ba_flat_is_the_default():
+    """Both packages' solve_local_ba and solve_local_ba_batch default to
+    the "flat" layout: the same call runs the same arithmetic."""
+    import inspect
+
+    for fn in (jba.solve_local_ba, tba.solve_local_ba, jba.solve_local_ba_batch,
+               tba.solve_local_ba_batch):
+        assert inspect.signature(fn).parameters["schur_impl"].default == "flat", fn
+
+
 def test_local_ba_rejects_unported_variants():
-    """An unknown layout or solver raises, and so do "flat" and "blockdiag"
-    with bfloat16 staging, whose rounding points are not ported (ROADMAP
-    queue 3 p); at float32 they run."""
+    """An unknown layout or solver raises (the JAX package would run its
+    one-hot einsum branch); "flat" and "blockdiag" run at either staging,
+    with LU and with the CG."""
     _, tc = _cams()
     prob = tba.BAProblem(**_as("torch", ba_problem(tc, 0, P=16)))
     with pytest.raises(ValueError):
@@ -240,13 +251,182 @@ def test_local_ba_rejects_unported_variants():
     with pytest.raises(ValueError):
         tba.solve_local_ba(tc, prob, n_free=4, linear_solver="qr")
     for impl in ("flat", "blockdiag"):
-        with pytest.raises(ValueError, match="queue 3 p"):
-            tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl)
-        with pytest.raises(ValueError, match="queue 3 p"):
-            tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl, linear_solver="cg")
-        res = tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl, use_bf16=False,
-                                 iters1=1, iters2=1, iters3=1)
-        assert torch.isfinite(res.cost)
+        for use_bf16 in (False, True):
+            for solver in ("lu", "cg"):
+                res = tba.solve_local_ba(tc, prob, n_free=4, schur_impl=impl,
+                                         use_bf16=use_bf16, linear_solver=solver,
+                                         iters1=1, iters2=1, iters3=1)
+                assert torch.isfinite(res.cost)
+
+
+def _layout_products_xla(layout, Jc, Jp, r, w, oh):
+    """The JAX layout's Hessian assembly (`gmmloc_tpu/solver/local_ba.py`,
+    the "flat" and "blockdiag" branches of lm_step and the H_pp, b_p before
+    them) on bfloat16 inputs, jitted on XLA's CPU: (H_pp, b_p, H_cc as
+    (L,6,6), b_c (L,6), U (P,L*6,3))."""
+    import functools
+
+    import jax
+
+    bf = jnp.bfloat16
+    P, MO, L = oh.shape
+    ein = functools.partial(jnp.einsum, preferred_element_type=jnp.float32)
+
+    @jax.jit
+    def f(Jcb, Jpb, rb, wb, ohb):
+        H_pp = ein("pmai,pm,pmaj->pij", Jpb, wb, Jpb)
+        b_p = ein("pmai,pm,pma->pi", Jpb, wb, rb)
+        if layout == "flat":
+            N = MO * 3
+            Z = (ohb[:, :, None, :, None] * Jcb[:, :, :, None, :]).reshape(P, N, L * 6)
+            Wn = jnp.repeat(wb, 3, axis=-1).reshape(P, N)
+            ZW = Z * Wn[..., None]
+            H = ein("pnc,pnd->cd", ZW, Z)
+            b = ein("pnc,pn->c", ZW, rb.reshape(P, N))
+            U = ein("pnc,pnj->pcj", ZW, Jpb.reshape(P, N, 3))
+            H = jnp.stack([H[6 * l:6 * l + 6, 6 * l:6 * l + 6] for l in range(L)])
+            return H_pp, b_p, H, b.reshape(L, 6), U
+        JcW = Jcb * wb[..., None, None]
+        JWJc = ein("pmai,pmaj->pmij", JcW, Jcb)
+        JWJp = ein("pmai,pmaj->pmij", JcW, Jpb)
+        JWr = ein("pmai,pma->pmi", JcW, rb)
+        H = ein("pml,pmx->lx", ohb, JWJc.reshape(P, MO, 36).astype(bf)).reshape(L, 6, 6)
+        b = ein("pml,pmi->li", ohb, JWr.astype(bf))
+        U = ein("pml,pmx->plx", ohb, JWJp.reshape(P, MO, 18).astype(bf))
+        return H_pp, b_p, H, b, U.reshape(P, L * 6, 3)
+
+    return [np.asarray(x) for x in f(*(jnp.asarray(x).astype(bf)
+                                       for x in (Jc, Jp, r, w, oh)))]
+
+
+def _layout_products_port(layout, Jc, Jp, r, w, oh):
+    """The port's assembly at the same points: `_weighted_bf16` and
+    solve_local_ba's one-hot sums, on the same bfloat16 values."""
+    P, MO, L = oh.shape
+    t = lambda x: tba._bf16_round(torch.tensor(x))
+    H_pp, b_p, JWJc, JWJp, JWr = tba._weighted_bf16(layout, t(r), t(Jc), t(Jp), t(w))
+    ohf = torch.tensor(oh).reshape(P * MO, L)
+    H = (ohf.T @ JWJc.reshape(P * MO, 36)).reshape(L, 6, 6)
+    b = ohf.T @ JWr.reshape(P * MO, 6)
+    U = torch.einsum("pml,pmij->plij", torch.tensor(oh), JWJp).reshape(P, 6 * L, 3)
+    return [x.numpy() for x in (H_pp, b_p, H, b, U)]
+
+
+@pytest.mark.parametrize("values", ["integers", "one_obs_per_camera"])
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_bf16_layout_rounding_points_equal_xla(layout, values):
+    """"flat" and "blockdiag" at bfloat16 round where XLA rounds them, bit
+    for bit on the same values. Two sets of values make every sum
+    independent of its order, so only the rounding points can differ:
+    small integers (5 bits: every product and sum exact in float32), and
+    real values with one observation per point and per camera (each sum
+    is one observation's three rows, summed ((0 + 1) + 2) in both). The
+    other rounding choices give other bits on the integers."""
+    rng = np.random.default_rng(0)
+    if values == "integers":
+        P, MO, L = 128, 4, 3
+        ints = lambda *s: rng.integers(-31, 32, s).astype(np.float32)
+        Jc, Jp, r = ints(P, MO, 3, 6), ints(P, MO, 3, 3), ints(P, MO, 3)
+        w = rng.integers(1, 32, (P, MO)).astype(np.float32)
+        cams = rng.integers(0, L, (P, MO))
+    else:
+        P, MO = 96, 1
+        L = P
+        Jc = rng.normal(0, 300, (P, MO, 3, 6)).astype(np.float32)
+        Jp = rng.normal(0, 300, (P, MO, 3, 3)).astype(np.float32)
+        r = rng.normal(0, 3, (P, MO, 3)).astype(np.float32)
+        w = rng.uniform(0.05, 2.0, (P, MO)).astype(np.float32)
+        cams = np.arange(P)[:, None]
+    oh = (cams[..., None] == np.arange(L)).astype(np.float32)
+    want = _layout_products_xla(layout, Jc, Jp, r, w, oh)
+    got = _layout_products_port(layout, Jc, Jp, r, w, oh)
+    for name, a, b in zip(("H_pp", "b_p", "H_cc", "b_c", "U"), got, want):
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    if values != "integers":
+        return
+    # exact float64 sums of the other choices: Z*W rounded for U too (or
+    # for none), the blockdiag products unrounded, J*W rounded for H_pp
+    bf = lambda x: tba._bf16_round(torch.tensor(x, dtype=torch.float32)).double().numpy()
+    J, Jq, R, W, O = (x.astype(np.float64) for x in (Jc, Jp, r, w, oh))
+    cw = J * W[..., None, None]
+    alt = dict(
+        U=np.einsum("pmai,pmaj,pml->plij", bf(cw), Jq, O).reshape(P, 6 * L, 3),
+        H_cc=np.einsum("pmai,pmaj,pml->lij", cw, J, O),
+        H_pp=np.einsum("pmai,pmaj->pij", bf(Jq * W[..., None, None]), Jq))
+    if layout == "blockdiag":
+        alt["U"] = np.einsum("pmai,pmaj,pml->plij", cw, Jq, O).reshape(P, 6 * L, 3)
+        alt["H_cc"] = np.einsum("pmai,pmaj,pml->lij", bf(cw), J, O)
+    for name, a in alt.items():
+        b = want[("H_pp", "b_p", "H_cc", "b_c", "U").index(name)]
+        assert not np.array_equal(a, b.astype(np.float64)), name
+
+
+@pytest.mark.parametrize("seed", [1, 2, 4])
+@pytest.mark.parametrize("layout", ["flat", "blockdiag"])
+def test_local_ba_bf16_layout_matches_reference(layout, seed):
+    """The port's "flat" / "blockdiag" at bfloat16 against the JAX
+    package's same layout, at test_local_ba_bf16_matches_reference's gates:
+    within 1.5x the reference's own spread between the layout and
+    "flatpm" (floors 1e-5 relative cost, 1e-5 m, 1e-4 m) and the same
+    dropped structure edges; the erased edges equal on every point that
+    keeps >= 2 observations. A point left with one edge wanders along its
+    ray (to +-1000 m on seeds 1 and 2) and the sign of its depth, which
+    erases that edge, is chaos: the reference flips it when its initial
+    points move by 1e-7 relative."""
+    jc, tc = _cams()
+    d = ba_problem(tc, seed)
+    jprob = jba.BAProblem(**_as("jax", d))
+    ref = jba.solve_local_ba(jc, jprob, schur_impl=layout, **BA_ITERS)
+    ref_pm = jba.solve_local_ba(jc, jprob, schur_impl="flatpm", **BA_ITERS)
+    out = tba.solve_local_ba(tc, tba.BAProblem(**_as("torch", d)), schur_impl=layout,
+                             **BA_ITERS)
+    spread = _ba_distance(ref_pm, ref, d["obs_valid"])
+    dist = _ba_distance(out, ref, d["obs_valid"])
+    floor = dict(cost=1e-5, cam_t=1e-5, pts=1e-4)
+    for k, f in floor.items():
+        assert dist[k] <= 1.5 * spread[k] + f, (k, dist, spread)
+    kept = ((~np.asarray(ref.obs_bad)) & d["obs_valid"]).sum(1) >= 2
+    np.testing.assert_array_equal(out.obs_bad.numpy()[kept], np.asarray(ref.obs_bad)[kept])
+    assert dist["str_drop"] == 0, dist
+    assert out.obs_bad.sum() > 0 and out.str_drop.sum() > 0
+
+
+def test_local_ba_batch_matches_reference():
+    """solve_local_ba_batch on the JAX batch test's three windows
+    (tests/test_solvers.py::test_local_ba_batch_matches_solo) against the
+    JAX package's vmapped batch, at that test's gates: camera log error
+    < 2e-3, median point distance < 5e-3 m; and each window equal to the
+    port's own solo solve, bit for bit."""
+    import jax
+
+    from gmmloc_tpu.geometry import se3 as jse3
+    from test_solvers import build_ba_problem
+
+    jc, tc = _cams()
+    probs = []
+    for seed in (1, 2, 3):
+        r = np.random.default_rng(seed)
+        prob, *_ = build_ba_problem(r)
+        pert = jnp.array(r.standard_normal(prob.pts.shape) * 0.03)
+        probs.append(prob._replace(pts=prob.pts + pert))
+    jbatch = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *probs)
+    ref = jba.solve_local_ba_batch(jc, jbatch, n_free=4, iters3=20)
+    tbatch = tba.BAProblem(**_as("torch", {k: np.asarray(v)
+                                           for k, v in jbatch._asdict().items()}))
+    out = tba.solve_local_ba_batch(tc, tbatch, n_free=4, iters3=20)
+    assert out.n_iters.shape == (3,)
+    for i in range(3):
+        for c in range(4):
+            err = jse3.log(*jse3.compose(
+                *jse3.inverse(ref.cam_q[i, c], ref.cam_t[i, c]),
+                jnp.asarray(out.cam_q[i, c].numpy()), jnp.asarray(out.cam_t[i, c].numpy())))
+            assert float(jnp.linalg.norm(err)) < 2e-3, (i, c, err)
+        d = np.linalg.norm(out.pts[i].numpy() - np.asarray(ref.pts[i]), axis=-1)
+        assert np.median(d) < 5e-3, (i, np.median(d))
+        solo = tba.solve_local_ba(tc, tba.BAProblem(*(x[i] for x in tbatch)), n_free=4,
+                                  iters3=20)
+        assert torch.equal(solo.pts, out.pts[i]) and torch.equal(solo.cam_t, out.cam_t[i])
+        assert solo.n_iters == int(out.n_iters[i])
 
 
 @pytest.mark.parametrize("seed", [1, 2, 4])
@@ -278,8 +458,10 @@ def test_local_ba_cg_with_flatpm_is_lu(use_bf16):
     same; so does the port, bit for bit."""
     _, tc = _cams()
     prob = tba.BAProblem(**_as("torch", ba_problem(tc, 1)))
-    a = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, linear_solver="lu", **BA_ITERS)
-    b = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, linear_solver="cg", **BA_ITERS)
+    a = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, schur_impl="flatpm",
+                           linear_solver="lu", **BA_ITERS)
+    b = tba.solve_local_ba(tc, prob, use_bf16=use_bf16, schur_impl="flatpm",
+                           linear_solver="cg", **BA_ITERS)
     for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert a.n_iters == b.n_iters

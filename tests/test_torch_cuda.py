@@ -558,3 +558,54 @@ def test_vocabulary_descent_on_card_equals_cpu(device):
     np.testing.assert_array_equal(
         voc.word_weight, Vocabulary.train(descs, k=10, depth=3, seed=0,
                                           device="cpu").word_weight)
+
+
+def test_pose_impl_on_card(device):
+    """`entry()`'s track step with pose_impl "pallas" launches K1 and K2
+    and equals "auto" bit for bit; "xla" launches neither and lands within
+    the K2 gates (rotation < 0.02 deg, translation < 2e-3 m)."""
+    from gmmloc_tpu_torch import entry
+    from gmmloc_tpu_torch.solver import cuda_pose
+    from gmmloc_tpu_torch.tracking import fused
+
+    fn, args = entry.entry(device)
+    cam = cam_mod.CameraParams.from_config(euroc_v1_config().camera)
+    kw = dict(log_scale_factor=float(np.log(1.2)), num_levels=8, use_anchors=True)
+    outs, launches = {}, {}
+    for impl in ("auto", "pallas", "xla"):
+        n0 = cuda_pose.optimize_pose.launches + cuda_pose.optimize_pose_anchored.launches
+        outs[impl] = fused.fused_track_step_packed(cam, *args, pose_impl=impl, **kw).cpu()
+        launches[impl] = (cuda_pose.optimize_pose.launches
+                          + cuda_pose.optimize_pose_anchored.launches - n0)
+    assert torch.equal(outs["auto"], outs["pallas"])
+    assert launches == {"auto": 2, "pallas": 2, "xla": 0}, launches
+    a, x = outs["auto"].numpy(), outs["xla"].numpy()
+    assert kernel_check.angle_deg(a[:4], x[:4]) < 0.02 and np.abs(a[4:7] - x[4:7]).max() < 2e-3
+    assert a[7] > 0
+
+
+@pytest.mark.parametrize("ranks,backend", [(1, "nccl"), (2, "gloo")])
+def test_sharded_paths_on_card(device, ranks, backend):
+    """`dryrun_multichip` on the card (production shapes) over a real NCCL
+    group of one rank and over two gloo ranks: association equal to the
+    unsharded port, the BA's points and cameras equal to the unsharded
+    solve at the same float64 sums. The noisy window (`entry.noisy_window`:
+    a solve that moves, so a sum left out of the reduction shows) within
+    the JAX package's two-process gate of the unsharded solve. Both BAs
+    bit for bit at one rank."""
+    from gmmloc_tpu_torch import entry
+
+    res = entry.dryrun_multichip(ranks, "cuda", backend=backend, timeout_s=300)
+    cam, gmm, pose, feat_uv, prob, L = entry.dryrun_inputs()
+    ref = entry.unsharded(device, cam, gmm, pose, feat_uv, prob, L, entry.DRYRUN_ITERS)
+    np.testing.assert_array_equal(res["visible"], ref["visible"])
+    np.testing.assert_array_equal(res["cand"], ref["cand"])
+    assert np.abs(res["pts"] - ref["pts"]).max() < 1e-5
+    assert np.abs(res["cam_t"] - ref["cam_t"]).max() < 1e-5
+    assert res["size"] == ranks and np.isfinite(res["cost"])
+    noisy = entry.noisy_window(prob)
+    nres = entry.sharded_ba(ranks, "cuda", cam, noisy, L, backend=backend, timeout_s=300)
+    nref = entry.unsharded(device, cam, None, None, None, noisy, L, entry.DRYRUN_ITERS)
+    for sharded, whole in ((res, ref), (nres, nref)):
+        gap = entry.ba_gap(sharded, whole)
+        assert entry.ba_gap_fault(gap, ranks) is None, gap

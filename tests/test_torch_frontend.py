@@ -17,7 +17,9 @@ Inputs are made from numpy seeds and go through both packages:
     `refine_subpixel` within 1e-3 px, the median cut as `jnp.nanmedian`;
   - equalisation, remap and `Rectifier` (from a yaml the test writes);
   - `ImageFrontend.process_packed` on a sprite pair: the shares of
-    keypoints and of stereo matches that agree.
+    keypoints and of stereo matches that agree;
+  - the per-level ORB forms (`gather_patches`, `ic_angle`,
+    `brief_descriptors`).
 """
 
 import dataclasses
@@ -314,3 +316,35 @@ def test_process_packed_matches_reference():
     # atan2 over another tensor length takes another vector/scalar split
     # on the CPU: angles may move by an ulp
     np.testing.assert_allclose(per_stage.angle, out.angle, atol=1e-4)
+
+
+@pytest.mark.parametrize("fn", ["gather_patches", "ic_angle", "brief_descriptors"])
+def test_per_level_orb_forms_match_reference(fn):
+    """The per-level forms on an integer image (8-bit values, so the
+    moments' sums are exact in any order): 31x31 patches at rounded
+    keypoints, clamped inside the image, equal (keypoints at and past the
+    border included); IC angles within 1e-4 deg (atan2 may part by an
+    ulp); descriptors given the same angles equal at angle 0 and on >= 99%
+    of the keypoints elsewhere (sin/cos may part by an ulp)."""
+    rng = np.random.default_rng(11)
+    img = rng.integers(0, 256, (96, 130)).astype(np.float32)
+    uv = rng.uniform([-5, -5], [135, 101], (64, 2)).astype(np.float32)
+    uv[:4] = [[0, 0], [129.6, 95.4], [15.5, 14.5], [64.49, 47.51]]
+    ju, tu = jnp.asarray(uv), torch.tensor(uv)
+    if fn == "gather_patches":
+        ref = np.asarray(jorb.gather_patches(jnp.asarray(img), ju))
+        out = orb.gather_patches(torch.tensor(img), tu).numpy()
+        assert out.shape == (64, 31, 31)
+        np.testing.assert_array_equal(out, ref)
+    elif fn == "ic_angle":
+        ref = np.asarray(jorb.ic_angle(jnp.asarray(img), ju))
+        out = orb.ic_angle(torch.tensor(img), tu).numpy()
+        d = np.abs(ref - out)
+        assert np.minimum(d, 360 - d).max() < 1e-4
+    else:
+        ang = rng.uniform(0, 360, 64).astype(np.float32)
+        ang[:16] = 0.0
+        ref = np.asarray(jorb.brief_descriptors(jnp.asarray(img), ju, jnp.asarray(ang)))
+        out = orb.brief_descriptors(torch.tensor(img), tu, torch.tensor(ang)).numpy()
+        same = (ref == out).all(1)
+        assert same[:16].all() and same.mean() >= 0.99

@@ -1,5 +1,6 @@
-"""Port against the JAX package: SE(3), camera and factor terms on random
-batches (numpy seed, the same inputs to both), to 1e-5."""
+"""Port against the JAX package: SE(3), camera (projection, stereo depth
+helpers) and factor terms on random batches (numpy seed, the same inputs
+to both), to 1e-5."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -142,3 +143,20 @@ def test_factor_terms_match_reference():
            tfac.se3_prior_jacobian(_t(q), _t(t), _t(d["q2"][0]), _t(d["t2"][0])), tol=1e-4)
     chi2 = rng.uniform(0, 20, N)
     _close(jfac.huber_weight(_j(chi2), 2.5), tfac.huber_weight(_t(chi2), 2.5))
+
+
+@pytest.mark.parametrize("fn", ["disparity_to_depth", "depth_to_uright"])
+def test_camera_stereo_helpers_match_reference(fn):
+    """disparity_to_depth and depth_to_uright, with non-positive
+    disparities and depths among the inputs."""
+    jc, tc = _cams()
+    rng = np.random.default_rng(5)
+    v = rng.uniform(-2, 60, N)
+    v[:3] = [0.0, -1.0, 1e-3]
+    if fn == "disparity_to_depth":
+        ref, out = jcam.disparity_to_depth(jc, _j(v)), tcam.disparity_to_depth(tc, _t(v))
+    else:
+        u = rng.uniform(0, 752, N)
+        ref = jcam.depth_to_uright(jc, _j(u), _j(v))
+        out = tcam.depth_to_uright(tc, _t(u), _t(v))
+    np.testing.assert_allclose(np.asarray(ref), out.numpy(), rtol=TOL, atol=1e-4)

@@ -2,7 +2,8 @@
 on the seeded room fixture (400 components padded to 512): the loaded map
 equal field by field, `render_view`'s visibility and
 `search_correspondence`'s candidates exact, and the fused
-`associate_and_check_kernel` exact in its component ids."""
+`associate_and_check_kernel` exact in its component ids. The Gaussian
+helpers of `gaussian.py` on seeded covariances."""
 
 import dataclasses
 
@@ -120,3 +121,74 @@ def test_associate_and_check_kernel_exact(world, view):
     np.testing.assert_array_equal(np.asarray(j[1]), o[1].numpy())       # component ids
     assert (o[1] >= 0).sum() > 20
     np.testing.assert_allclose(np.asarray(j[2]), o[2].numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("fn", ["decompose", "degenerate_flags", "sqrt_info", "chi2", "pdf",
+                                "bhattacharyya_3d", "bhattacharyya_2d"])
+def test_gaussian_helpers_match_reference(fn):
+    """The 3-D and 2-D component helpers against the JAX package's on
+    seeded float32 covariances (some degenerate), to 1e-5 relative; the
+    eigenvalues within 8 eps of each matrix's largest, its inverse and
+    determinant within 8 eps times its condition number, the eigenvectors
+    up to sign, the flags equal."""
+    from gmmloc_tpu.gmm import gaussian as jg
+
+    from gmmloc_tpu_torch.gmm import gaussian as tg
+
+    rng = np.random.default_rng(9)
+    n = 32
+    A = rng.normal(size=(n, 3, 3))
+    scale = np.stack([rng.uniform(1e-6, 1e-3, n), rng.uniform(0.1, 0.5, n),
+                      rng.uniform(0.3, 1.0, n)], -1)
+    R = np.linalg.qr(A)[0]
+    covs = np.einsum("nij,nj,nkj->nik", R, scale, R).astype(np.float32)
+    covs_b = np.roll(covs, 1, 0) + np.eye(3, dtype=np.float32) * 0.01
+    mean, mean_b = rng.normal(size=(2, n, 3)).astype(np.float32)
+    x = (mean + rng.normal(scale=0.3, size=(n, 3))).astype(np.float32)
+    j, t = jnp.asarray, torch.tensor
+    inv = np.linalg.inv(covs.astype(np.float64)).astype(np.float32)
+    det = np.linalg.det(covs.astype(np.float64)).astype(np.float32)
+    det_b = np.linalg.det(covs_b.astype(np.float64)).astype(np.float32)
+    close = lambda a, b: np.testing.assert_allclose(  # noqa: E731
+        np.asarray(b), np.asarray(a), rtol=1e-5, atol=1e-5 * np.abs(np.asarray(a)).max())
+    if fn == "decompose":
+        a, b = jg.decompose(j(covs)), tg.decompose(t(covs))
+        # two float32 solvers part by ~eps times the largest eigenvalue in
+        # the eigenvalues and by ~eps times the condition number in the
+        # inverse and the determinant
+        eps = np.finfo(np.float32).eps
+        cond = np.linalg.cond(covs.astype(np.float64))
+        ia, ib = np.asarray(a["cov_inv"]), b["cov_inv"].numpy()
+        assert (np.abs(ia - ib).max((1, 2)) <= 8 * eps * cond * np.abs(ia).max((1, 2))).all()
+        sa, sb = np.asarray(a["scale"]), b["scale"].numpy()
+        assert (np.abs(sa - sb) <= 8 * eps * sa[:, 2:]).all()
+        da, db = np.asarray(a["det"]), b["det"].numpy()
+        assert (np.abs(da - db) <= 8 * eps * cond * np.abs(da)).all()
+        dots = np.abs(np.sum(np.asarray(a["axis"]) * b["axis"].numpy(), axis=-2))
+        np.testing.assert_allclose(dots, 1.0, atol=1e-3)
+        np.testing.assert_allclose(np.abs(np.sum(np.asarray(a["normal"]) * b["normal"].numpy(),
+                                                 -1)), 1.0, atol=1e-3)
+    elif fn == "degenerate_flags":
+        for a, b in zip(jg.degenerate_flags(j(scale)), tg.degenerate_flags(t(scale))):
+            np.testing.assert_array_equal(np.asarray(a), b.numpy())
+        assert np.asarray(jg.degenerate_flags(j(scale))[0]).any()
+    elif fn == "sqrt_info":
+        spd = inv + np.eye(3, dtype=np.float32) * 1e-2
+        close(jg.sqrt_info(j(spd)), tg.sqrt_info(t(spd)))
+    elif fn == "chi2":
+        close(jg.chi2(j(mean), j(inv), j(x)), tg.chi2(t(mean), t(inv), t(x)))
+    elif fn == "pdf":
+        c2 = covs_b.astype(np.float32)
+        i2 = np.linalg.inv(c2.astype(np.float64)).astype(np.float32)
+        close(jg.pdf(j(mean), j(i2), j(det_b), j(x)), tg.pdf(t(mean), t(i2), t(det_b), t(x)))
+    elif fn == "bhattacharyya_3d":
+        args = (mean, covs, det, mean_b, covs_b, det_b)
+        close(jg.bhattacharyya_3d(*map(j, args)), tg.bhattacharyya_3d(*map(t, args)))
+        # broadcast pairwise, as the neighbour graph calls it
+        pa = (mean[:, None], covs[:, None], det[:, None], mean_b[None], covs_b[None],
+              det_b[None])
+        close(jg.bhattacharyya_3d(*map(j, pa)), tg.bhattacharyya_3d(*map(t, pa)))
+    else:
+        c2a, c2b = covs[:, :2, :2] * 100, covs_b[:, :2, :2] * 100
+        args = (mean[:, :2], c2a, mean_b[:, :2], c2b)
+        close(jg.bhattacharyya_2d(*map(j, args)), tg.bhattacharyya_2d(*map(t, args)))

@@ -242,21 +242,36 @@ def test_entry_points_default_to_cuda():
         ImageFrontend(slice_run.image_config())
 
 
-@pytest.mark.parametrize("option", ["pose_impl", "schur_flat_bf16",
-                                    "schur_blockdiag_bf16"])
+@pytest.mark.parametrize("option", ["pose_impl", "schur_impl"])
 def test_system_rejects_unported_options(option):
-    """What still raises: a pose solver other than "auto", and the BA's
-    "flat" and "blockdiag" layouts, whose bfloat16 rounding is not ported
-    (the system stages the BA in bfloat16; ROADMAP queue 3 p)."""
+    """What still raises: an unknown pose solver or BA layout name (the
+    JAX package falls back silently on the first and runs its one-hot
+    einsum on the second; ROADMAP queue 3 c)."""
     cfg = slice_config()
     gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
     if option == "pose_impl":
-        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pose_impl="pallas"))
+        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking, pose_impl="pallass"))
     else:
-        impl = option.split("_")[1]
-        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, ba_schur_impl=impl))
+        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, ba_schur_impl="onehot"))
     with pytest.raises(ValueError):
         GMMLocSystem(cfg, gmap, "cpu")
+
+
+@pytest.mark.parametrize("option", ["pose_impl_xla", "pose_impl_pallas", "schur_flat",
+                                    "schur_blockdiag"])
+def test_system_builds_with_multi_device_options(option):
+    """The options that raised until the multi-device slice build: a pose
+    solver named "xla" or "pallas" and the BA's "flat" and "blockdiag"
+    layouts, which the system stages in bfloat16."""
+    cfg = slice_config()
+    gmap = mixture.from_arrays(np.zeros((1, 3)), np.eye(3)[None] * 0.01, "cpu")
+    if option.startswith("pose_impl"):
+        cfg = cfg.replace(tracking=dataclasses.replace(cfg.tracking,
+                                                       pose_impl=option.split("_")[2]))
+    else:
+        cfg = cfg.replace(loc=dataclasses.replace(cfg.loc, ba_schur_impl=option.split("_")[1]))
+    s = GMMLocSystem(cfg, gmap, "cpu")
+    assert s.cfg == cfg
 
 
 def test_system_builds_with_ported_options():
