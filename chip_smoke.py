@@ -120,7 +120,36 @@ Phases, each of which raises on failure (exit code non-zero):
      ms per LM iteration sharded (eager) against unsharded (replayed),
      the collectives' ms, bytes and calls per iteration and the
      association's ms. Each rank is a process with its own time limit.
- 12. K3 exact against its plain version at every (N, M) the paths
+ 12. [eval]: the entry layer (`gmmloc_tpu_torch/eval/`) through the
+     `main` a user calls, on a room fixture written as the EuRoC assets
+     (3300 components; `synthetic.GT_DIR`/`V1_GMM` pointed at it), each
+     step logging `[eval] <step> start` first: (a) `evaluate.main`, the
+     reference's evaluate_euroc.sh protocol, 2 runs x 200 frames from
+     frame 150 at the JAX defaults with `--damping 0.9 --reloc 1` (one
+     vocabulary, trained once), then one run `--online --pace 20` over
+     120 frames: every run complete with no lost frame, its TUM file one
+     row per frame at the ground truth's timestamps, the max camera-centre
+     error under PROD_MAX_ERR_M, no BA window cap bound, summary.json with
+     the JAX tool's keys, K1-K3 launched; (b) `evaluate_image.main`, one
+     run of 120 rendered 752x480 pairs (1200 features, 8 levels) under
+     the image gate, K4 at least once per frame and K1-K4 launched; (c)
+     `diagnose.main` over 100 frames: the JAX header, a row per frame,
+     the tracker's diagnostics on every tracked frame; (d) `view_map.main`
+     from a checkpoint of (a)'s last world: every keyframe in the HTML,
+     no PIL/PyYAML/matplotlib imported; (e) `stress.main` at 10x the
+     components (33000, padded to 33024, no neighbour table): the map's
+     device bytes, render and association timed with CUDA events on one
+     device and over two gloo ranks on the card (equal to one device),
+     then `reloc_under_stress(10)` (the neighbour graph built on the
+     host, its seconds printed): lost; recovered with the median error
+     after the recovery under RELOC_MAX_ERR_M, or, where the room
+     fixture leaves the prior-map consistency share under the
+     relocalizer's threshold, every candidate the pose solve found turned
+     down by that check alone (`_reloc_gate`); and the same scenario on
+     the 1x map: lost, recovered, under RELOC_MAX_ERR_M. Prints frames/s,
+     p50/p95 of the host time per step and the rmse per run, the ms of
+     render and association.
+ 13. K3 exact against its plain version at every (N, M) the paths
      launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
@@ -184,6 +213,17 @@ DISK_STOP_FRAME = 60
 DISK_OCTREE_FRAMES = 40
 # [multi]: frames of each sweep job
 SWEEP_FRAMES = 40
+# [eval]: the protocol's runs and frames (from frame EVAL_START of the
+# fixture's trajectory, the JAX tool's default start), the online run's,
+# the image-level run's (from frame 0), the diagnosis' frames and the
+# stress run's factor on the fixture's components
+EVAL_RUNS = 2
+EVAL_FRAMES = 200
+EVAL_START = 150
+EVAL_ONLINE_FRAMES = 120
+EVAL_IMG_FRAMES = 120
+DIAG_FRAMES = 100
+STRESS_FACTOR = 10
 
 
 def k3_shapes():
@@ -1151,6 +1191,359 @@ def run_multi_phase(device, card) -> dict:
     return out
 
 
+class _Made:
+    """Every `GMMLocSystem` a module constructs while the `with` lasts (the
+    module's name for the class is wrapped and restored), each with
+    `step_s`: the host time of each of its `step` calls."""
+
+    def __init__(self, mod):
+        self.mod, self.systems = mod, []
+
+    def __enter__(self):
+        cls = self.mod.GMMLocSystem
+
+        def make(*a, **kw):
+            system = cls(*a, **kw)
+            inner, system.step_s = system.step, []
+
+            def step(*sa, **skw):
+                t0 = time.perf_counter()
+                st = inner(*sa, **skw)
+                system.step_s.append(time.perf_counter() - t0)
+                return st
+
+            system.step = step
+            self.systems.append(system)
+            return system
+
+        self.cls, self.mod.GMMLocSystem = cls, make
+        return self.systems
+
+    def __exit__(self, *exc):
+        self.mod.GMMLocSystem = self.cls
+
+
+def _tum_check(name, path, ts, t_wc, start, n, gate):
+    """A run's TUM file: one row per frame with the ground truth's
+    timestamps; returns the max camera-centre error (m), held under
+    `gate`."""
+    import numpy as np
+
+    from gmmloc_tpu_torch.eval import ate
+
+    t_est, p_est, _ = ate.load_tum(path)
+    if len(t_est) != n or not np.allclose(t_est, ts[start:start + n], rtol=0, atol=1e-6):
+        raise RuntimeError(f"[eval] {name}: {len(t_est)} TUM rows for {n} frames, or "
+                           "timestamps other than the ground truth's")
+    err = float(np.linalg.norm(p_est - t_wc[start:start + n], axis=1).max())
+    if not err < gate:
+        raise RuntimeError(f"[eval] {name}: max camera-centre error {err:.4f} m >= {gate} m")
+    return err
+
+
+def _eval_runs(name, tool, out_dir, n, traj, start, gate, systems, needed, launches):
+    """The checks of one `evaluate`/`evaluate_image` (`tool`) call:
+    summary.json with the JAX tool's keys, every run complete with no lost
+    frame, its TUM file and error, no BA window cap bound (`evaluate`
+    records the BA windows), the kernels launched, the
+    mapper drained and joined. Returns per run frames/s (the tool's), p50
+    and p95 of the host time per `step` call, rmse and max error."""
+    import numpy as np
+
+    from gmmloc_tpu_torch.eval import evaluate
+
+    with_ba = tool is evaluate
+    with open(os.path.join(out_dir, "summary.json")) as f:
+        written = json.load(f)
+    ts, _, t_wc = traj
+    runs = written["V1_01_easy"]["runs"]
+    out = []
+    for r, (m, system) in enumerate(zip(runs, systems)):
+        missing = [k for k in tool.RUN_KEYS if k not in m]
+        ba = m.get("ba_stats", {})
+        if missing or (with_ba and sorted(ba) != sorted(evaluate.BA_STATS_KEYS)):
+            raise RuntimeError(f"[eval] {name} run {r}: keys missing {missing}, "
+                               f"ba_stats {sorted(ba)}")
+        if not (m["completed"] and m["frames"] == n and m["lost"] == 0):
+            raise RuntimeError(f"[eval] {name} run {r}: {m}")
+        if with_ba and ba["caps_bound"] != 0:
+            raise RuntimeError(f"[eval] {name} run {r}: a BA window cap bound "
+                               f"{ba['caps_bound']} times")
+        if system.online is not None and (system.online.count_queue()
+                                          or system.online._thread is not None):
+            raise RuntimeError(f"[eval] {name} run {r}: the mapper was not drained")
+        err = _tum_check(f"{name} run {r}", os.path.join(out_dir, f"V1_01_easy{r}.txt"),
+                         ts, t_wc, start, n, gate)
+        step_ms = np.array(system.step_s) * 1e3
+        out.append(dict(fps=m["fps"], p50_ms=float(np.percentile(step_ms, 50)),
+                        p95_ms=float(np.percentile(step_ms, 95)), rmse_m=m["rmse"],
+                        max_err_m=err, kfs=m["kfs"], ba_solves=ba.get("n_solves"),
+                        tiers=ba.get("tiers")))
+    if len(runs) != len(systems):
+        raise RuntimeError(f"[eval] {name}: {len(runs)} runs, {len(systems)} systems")
+    for k in needed:
+        if launches[k] <= 0:
+            raise RuntimeError(f"[eval] {name}: {k} was not launched")
+    return out
+
+
+class _RelocAttempts:
+    """Every `Relocalizer.relocalize` call while the `with` lasts: the
+    frame, the outcome and the relocalizer's `last_stats` (per candidate
+    keyframe: matches and inliers of the pose solve, then the share of
+    stereo points consistent with the prior map where the solve kept
+    `min_inliers`), with the relocalizer's two thresholds."""
+
+    def __enter__(self):
+        from gmmloc_tpu_torch.tracking import relocalize
+
+        self.calls, self.cls = [], relocalize.Relocalizer
+        inner = self.inner = self.cls.relocalize
+
+        def relocalize_(rel, frame):
+            ok = inner(rel, frame)
+            self.calls.append(dict(frame=int(frame.idx), ok=bool(ok),
+                                   stats=list(rel.last_stats),
+                                   min_inliers=rel.min_inliers,
+                                   min_share=rel.gmm_consistency_min))
+            return ok
+
+        self.cls.relocalize = relocalize_
+        return self.calls
+
+    def __exit__(self, *exc):
+        self.cls.relocalize = self.inner
+
+
+def _reloc_gate(rel: dict, attempts: list) -> dict:
+    """`reloc_under_stress`'s gate. It must go lost and try to relocalize.
+    Recovered: the median error after the recovery under RELOC_MAX_ERR_M.
+    Not recovered: only if place recognition and the pose solve found the
+    map (a candidate with `min_inliers` inliers) and the prior-map
+    consistency check (`Relocalizer._gmm_consistent`: a share of the
+    frame's stereo points within chi2 16 of their nearest component) turned
+    down every such candidate. The room fixture's flat tiles (1 mm normal
+    sigma against centimetres of stereo depth noise) leave that share at
+    its 0.25 threshold, and the 10x map moves it under (ROADMAP queue 3 y).
+    Returns the counts it read."""
+    solved, rejected = 0, []
+    for call in attempts:
+        st = call["stats"]
+        for i, e in enumerate(st):
+            if isinstance(e[0], int) and e[2] >= call["min_inliers"]:
+                solved += 1
+                if not call["ok"]:
+                    nxt = st[i + 1] if i + 1 < len(st) else (None, None)
+                    rejected.append(nxt[1] if nxt[0] == "gmm_frac" else None)
+    share = attempts[0]["min_share"] if attempts else None
+    out = dict(relocalize_calls=len(attempts), solved_candidates=solved,
+               rejected_by_consistency=len(rejected),
+               consistency_max=max((x for x in rejected if x is not None), default=None),
+               consistency_min_share=share)
+    if not rel["went_lost"] or not attempts:
+        raise RuntimeError(f"[eval] (e) reloc_under_stress: {rel}, {len(attempts)} "
+                           "relocalize calls")
+    if rel["relocalized"]:
+        if not rel["post_recovery_median_err_m"] < RELOC_MAX_ERR_M:
+            raise RuntimeError(f"[eval] (e) reloc_under_stress: {rel}")
+    elif solved == 0 or any(x is None or x >= share for x in rejected):
+        raise RuntimeError(f"[eval] (e) reloc_under_stress did not recover and not for the "
+                           f"consistency check alone: {rel}, {out}")
+    return out
+
+
+def run_eval_phase(device, card) -> dict:
+    """[eval]: the entry layer (`gmmloc_tpu_torch/eval/`) through its
+    `main`s, as a user calls them, on a room fixture standing in for the
+    EuRoC assets (`synthetic.GT_DIR`/`V1_GMM` pointed at it): (a) the
+    evaluation protocol offline (EVAL_RUNS x EVAL_FRAMES, `--reloc 1`,
+    the vocabulary trained once) and online (`--online --pace 20`); (b)
+    the image-level protocol at full width; (c) the per-frame diagnosis;
+    (d) the map viewer from a checkpoint of (a)'s last world; (e) the
+    dense-map stress run at 10x, sharded over two gloo ranks, then its
+    relocalization at 10x (`_reloc_gate`) and at 1x. Each step logs
+    `[eval] <step> start` before it runs.
+    Returns {path: out} with the launches of each path."""
+    import shutil
+
+    from gmmloc_tpu_torch.eval import (diagnose, evaluate, evaluate_image, room_fixture,
+                                       slice_run, stress, synthetic, view_map)
+    from gmmloc_tpu_torch.pipeline import checkpoint
+
+    t_phase = time.perf_counter()
+    root = os.path.join(slice_run.default_fixture_dir(), "eval")
+    n_traj = EVAL_START + EVAL_FRAMES + 50
+    gmm_path, gt_path = room_fixture.write_room_fixture(root, n_components=N_COMPONENTS,
+                                                        n_frames=n_traj)
+    gt_dir = os.path.join(root, "gt")
+    os.makedirs(gt_dir, exist_ok=True)
+    shutil.copy(gt_path, os.path.join(gt_dir, "V1_01_easy.txt"))
+    saved = (synthetic.GT_DIR, synthetic.V1_GMM, synthetic.V2_GMM)
+    synthetic.GT_DIR, synthetic.V1_GMM, synthetic.V2_GMM = gt_dir, gmm_path, gmm_path
+    outs = {}
+    try:
+        traj = synthetic.load_gt_trajectory(gt_path)
+
+        def step(name):
+            log(f"[eval] {name} start")
+            return time.perf_counter()
+
+        # (a) the protocol, offline then online
+        t0 = step("(a) evaluate offline")
+        evaluate._VOCAB_CACHE.clear()
+        out_dir = os.path.join(root, "feature")
+        reset_launches()
+        with _Made(evaluate) as systems:
+            evaluate.main(["--runs", str(EVAL_RUNS), "--frames", str(EVAL_FRAMES),
+                           "--start", str(EVAL_START), "--damping", "0.9", "--reloc", "1",
+                           "--out", out_dir])
+        launches = read_launches()
+        runs = _eval_runs("(a) offline", evaluate, out_dir, EVAL_FRAMES,
+                          traj, EVAL_START, PROD_MAX_ERR_M, systems,
+                          ("K1", "K2", "K3"), launches)
+        if len(evaluate._VOCAB_CACHE) != 1:
+            raise RuntimeError("[eval] (a) the vocabulary was not trained once and reused: "
+                               f"{len(evaluate._VOCAB_CACHE)} cached")
+        outs["eval_feature"] = dict(runs=runs, launches=launches,
+                                    seconds=time.perf_counter() - t0)
+        log(f"[eval] (a) offline {json.dumps(outs['eval_feature'])} on {card}")
+
+        t0 = step("(a) evaluate online")
+        out_dir = os.path.join(root, "online")
+        reset_launches()
+        with _Made(evaluate) as systems:
+            evaluate.main(["--runs", "1", "--frames", str(EVAL_ONLINE_FRAMES), "--start",
+                           str(EVAL_START), "--damping", "0.9", "--reloc", "1", "--online",
+                           "--pace", "20", "--out", out_dir])
+        launches = read_launches()
+        runs = _eval_runs("(a) online", evaluate, out_dir, EVAL_ONLINE_FRAMES,
+                          traj, EVAL_START, PROD_MAX_ERR_M, systems,
+                          ("K1", "K2", "K3"), launches)
+        if systems[0].online is None:
+            raise RuntimeError("[eval] (a) online: the mapper thread did not run")
+        outs["eval_online"] = dict(runs=runs, launches=launches,
+                                   seconds=time.perf_counter() - t0)
+        log(f"[eval] (a) online {json.dumps(outs['eval_online'])} on {card}")
+        last_world = systems[-1].world
+
+        # (b) the image-level protocol at full width
+        t0 = step("(b) evaluate_image")
+        out_dir = os.path.join(root, "image")
+        reset_launches()
+        with _Made(evaluate_image) as systems:
+            evaluate_image.main(["--runs", "1", "--frames", str(EVAL_IMG_FRAMES),
+                                 "--out", out_dir])
+        launches = read_launches()
+        runs = _eval_runs("(b) image", evaluate_image, out_dir, EVAL_IMG_FRAMES,
+                          traj, 0, image_gate(), systems, tuple(KERNELS),
+                          launches)
+        if launches["K4"] < EVAL_IMG_FRAMES:
+            raise RuntimeError(f"[eval] (b) K4 launched {launches['K4']} times for "
+                               f"{EVAL_IMG_FRAMES} frames")
+        cfg = systems[0].cfg
+        outs["eval_image"] = dict(runs=runs, launches=launches, width=cfg.camera.width,
+                                  height=cfg.camera.height,
+                                  num_features=cfg.frame.num_features,
+                                  levels=cfg.frame.num_levels,
+                                  seconds=time.perf_counter() - t0)
+        log(f"[eval] (b) image {json.dumps(outs['eval_image'])} on {card}")
+
+        # (c) the per-frame diagnosis
+        t0 = step("(c) diagnose")
+        csv = os.path.join(root, "diag.csv")
+        reset_launches()
+        diag = diagnose.main(["--seq", "V1_01_easy", "--frames", str(DIAG_FRAMES),
+                              "--start", str(EVAL_START), "--out", csv])
+        launches = read_launches()
+        with open(csv) as f:
+            header = f.readline().strip()
+            rows = [line.strip().split(",") for line in f if line.strip()]
+        cols = header.split(",")
+        res, nmot, ngmm = (cols.index(c) for c in ("res", "n_motion", "n_gmm_inl"))
+        # the bootstrap keyframe (row 0) has no tracker diagnostics
+        missing = [int(r[0]) for r in rows[1:] if r[res] == "1"
+                   and (r[nmot] == "-1" or r[ngmm] == "-1")]
+        if header != diagnose.HEADER or len(rows) != DIAG_FRAMES or missing:
+            raise RuntimeError(f"[eval] (c) diagnose: header {header == diagnose.HEADER}, "
+                               f"{len(rows)} rows, frames without diagnostics {missing[:10]}")
+        for k in ("K1", "K2", "K3"):
+            if launches[k] <= 0:
+                raise RuntimeError(f"[eval] (c) diagnose: {k} was not launched")
+        outs["diagnose"] = dict(rows=len(rows), tracked=diag["tracked"],
+                                rmse_m=diag["ate"]["rmse"], n_lost=diag["n_lost"],
+                                launches=launches, seconds=time.perf_counter() - t0)
+        log(f"[eval] (c) diagnose {json.dumps(outs['diagnose'])} on {card}")
+
+        # (d) the map viewer from a checkpoint of (a)'s last world
+        t0 = step("(d) view_map")
+        ckpt = os.path.join(root, "eval_world.npz")
+        checkpoint.save_checkpoint(ckpt, last_world, frame_cursor=EVAL_ONLINE_FRAMES)
+        html = view_map.main([ckpt, "--gmm", "v1", "--out", os.path.join(root, "map.html")])
+        text = open(html).read()
+        frusta = json.loads(text.split("const D = ", 1)[1].split(";\n", 1)[0])["frusta"]
+        check_host_libs()
+        vm = dict(html_bytes=len(text), html_keyframes=len(frusta) // 8,
+                  keyframes=last_world.n_keyframes(), seconds=time.perf_counter() - t0)
+        if vm["html_keyframes"] != vm["keyframes"] or len(frusta) % 8:
+            raise RuntimeError(f"[eval] (d) view_map: {vm}")
+        outs["view_map"] = vm
+        log(f"[eval] (d) view_map {json.dumps(vm)} on {card}")
+
+        # (e) the dense-map stress run
+        t0 = step("(e) stress")
+        reset_launches()
+        st = stress.main([str(STRESS_FACTOR), "--ranks", "2"])
+        sh = st["sharded"]
+        if (st["K"] != STRESS_FACTOR * N_COMPONENTS or st["pad"] % 256
+                or sh["differs"] or sh["size"] != 2):
+            raise RuntimeError(f"[eval] (e) stress: K {st['K']}, pad {st['pad']}, the "
+                               f"sharded run differs in {sh['differs']}")
+        keep = ("render_ms", "assoc_ms")
+        sout = dict(K=st["K"], pad=st["pad"], map_bytes=st["map_bytes"],
+                    build_s=st["build_s"], visible=int(st["single"]["visible"].sum()),
+                    single={k: st["single"][k] for k in keep},
+                    sharded_gloo2={k: sh[k] for k in keep},
+                    sharded_collectives=dict(render=sh["render_collectives"],
+                                             assoc=sh["assoc_collectives"]))
+        log(f"[eval] (e) stress {json.dumps(sout)} on {card}")
+        t1 = step("(e) reloc_under_stress")
+        with _RelocAttempts() as attempts:
+            rel = stress.reloc_under_stress(STRESS_FACTOR, device=device)
+        gate = _reloc_gate(rel, attempts)
+        t_1x = step("(e) reloc_under_stress 1x")
+        rel1 = stress.reloc_under_stress(1, device=device)
+        launches = read_launches()
+        if not (rel1["went_lost"] and rel1["relocalized"]
+                and rel1["post_recovery_median_err_m"] < RELOC_MAX_ERR_M):
+            raise RuntimeError(f"[eval] (e) reloc_under_stress(1): {rel1}")
+        for k in ("K1", "K2", "K3"):
+            if launches[k] <= 0:
+                raise RuntimeError(f"[eval] (e) reloc_under_stress: {k} was not launched")
+        outs["stress"] = dict(sout, reloc=dict(rel, **gate, seconds=t_1x - t1),
+                              reloc_1x=dict(rel1, seconds=time.perf_counter() - t_1x),
+                              launches=launches, seconds=time.perf_counter() - t0)
+        log(f"[eval] (e) reloc_under_stress({STRESS_FACTOR}) {json.dumps(outs['stress']['reloc'])}; "
+            f"neighbour graph and map built on the host in {rel['map_build_s']} s; "
+            f"1x: {json.dumps(rel1)} on {card}")
+    finally:
+        synthetic.GT_DIR, synthetic.V1_GMM, synthetic.V2_GMM = saved
+    f = outs["eval_feature"]["runs"]
+    on, im = outs["eval_online"]["runs"][0], outs["eval_image"]["runs"][0]
+    log(f"[result] eval: offline {[round(r['fps'], 2) for r in f]} frames/s, p50/p95 "
+        f"{[(round(r['p50_ms'], 1), round(r['p95_ms'], 1)) for r in f]} ms, rmse "
+        f"{[round(r['rmse_m'] * 100, 2) for r in f]} cm; online {on['fps']:.2f} frames/s, "
+        f"p50/p95 {on['p50_ms']:.1f}/{on['p95_ms']:.1f} ms, rmse {on['rmse_m'] * 100:.2f} cm; "
+        f"image {im['fps']:.2f} frames/s, p50/p95 {im['p50_ms']:.1f}/{im['p95_ms']:.1f} ms, "
+        f"rmse {im['rmse_m'] * 100:.2f} cm, max error "
+        f"{im['max_err_m'] * 100:.2f} cm; stress K="
+        f"{outs['stress']['K']} render {outs['stress']['single']['render_ms']:.3f} ms, "
+        f"association {outs['stress']['single']['assoc_ms']:.3f} ms (two gloo ranks "
+        f"{outs['stress']['sharded_gloo2']['render_ms']:.3f} / "
+        f"{outs['stress']['sharded_gloo2']['assoc_ms']:.3f} ms) on {card}")
+    log(f"[time] [eval] {time.perf_counter() - t_phase:.1f}s")
+    return outs
+
+
 def check_host_libs():
     """No PIL, PyYAML or matplotlib: the machines with the card have none."""
     mods = sorted(m for m in ("PIL", "yaml", "matplotlib") if m in sys.modules)
@@ -1252,6 +1645,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [disk]")
     multi = run_multi_phase(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [multi]")
+    evals = run_eval_phase(device, card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [eval]")
     k3_paths = check_path_shapes(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)
@@ -1268,7 +1663,10 @@ def main() -> int:
                                   **{n: disk[n]["launches"][key]
                                      for n in ("disk", "disk_octree")},
                                   entry=multi["entry"]["launches"][key],
-                                  multi=multi["launches"][key]),
+                                  multi=multi["launches"][key],
+                                  **{n: evals[n]["launches"][key]
+                                     for n in ("eval_feature", "eval_online", "eval_image",
+                                               "diagnose", "stress")}),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], shape=k["shape"],

@@ -11,6 +11,7 @@ equal to the original by tests/test_torch_system.py.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -21,6 +22,18 @@ from ..geometry import camera as cam_mod
 from ..mapping.map_state import _quat_to_mat
 from ..tracking.frame import Frame, make_frame
 from ..utils import proto
+
+# Where the runners (`eval/evaluate.py` and its siblings) read the EuRoC
+# assets: the sequences' gt_sync trajectories and the V1/V2 prior maps of
+# the reference repository (`gmmloc_ros`), checked out as `reference/`
+# beside this repository. A run without those assets points these names
+# at a room fixture (`room_fixture`).
+_REF_DATA = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))), "reference", "gmmloc_ros", "data")
+GT_DIR = os.path.join(_REF_DATA, "gt_sync")
+V1_GMM = os.path.join(_REF_DATA, "map", "v1.gmm")
+V2_GMM = os.path.join(_REF_DATA, "map", "v2.gmm")
 
 
 def load_gt_trajectory(path: str):

@@ -119,10 +119,13 @@ def _to_device(arrs: dict, host: dict, device) -> GMMMap:
 def from_arrays(means, covs, device="cuda", pad_to: int | None = None,
                 neighbor_dist_thresh: float = 2.5, neighbor_cap: int = 16,
                 degenerate_eig_thresh: float = 1e-4,
-                salient_eig_thresh: float = 0.2) -> GMMMap:
+                salient_eig_thresh: float = 0.2,
+                build_neighbors: bool = True) -> GMMMap:
     """GMMMap from raw (K,3)/(K,3,3) arrays: float64 eigendecomposition,
     inverse, determinant and Cholesky on the host, padded to `pad_to`
-    (identity covariances in the padding), then float32 on `device`."""
+    (identity covariances in the padding), then float32 on `device`.
+    `build_neighbors=False` skips the O(K^2) neighbour pass and leaves the
+    neighbour table at -1 (a map whose users never read it)."""
     device = resolve(device)
     means = np.asarray(means, dtype=np.float64)
     covs = np.asarray(covs, dtype=np.float64)
@@ -141,8 +144,10 @@ def from_arrays(means, covs, device="cuda", pad_to: int | None = None,
         return out
 
     neighbors = np.full((cap, neighbor_cap), -1, dtype=np.int32)
-    neighbors[:K] = build_neighbor_graph(
-        means, covs, det, np.ones(K, dtype=bool), neighbor_dist_thresh, neighbor_cap)
+    if build_neighbors:
+        neighbors[:K] = build_neighbor_graph(
+            means, covs, det, np.ones(K, dtype=bool), neighbor_dist_thresh,
+            neighbor_cap)
     eye = lambda a: np.concatenate([a[:K], np.tile(np.eye(3), (cap - K, 1, 1))])
     axis_p = eye(pad(evecs))
     valid = np.zeros(cap, dtype=bool)

@@ -838,9 +838,15 @@ class Localization:
             cg_iters=lc.ba_cg_iters)
 
     def _record_ba(self, L, P, n_local, n_fixed, n_obs_pt, dropped, kf0) -> None:
+        MO = self.cfg.caps.ba_obs_per_point
+        n_act = len(n_obs_pt)
         self.ba_stats.append({
-            "L": L, "P": P, "MO": self.cfg.caps.ba_obs_per_point, "n_local": n_local,
-            "n_fixed": n_fixed, "n_pts": len(n_obs_pt), "n_obs": int(n_obs_pt.sum()),
+            "L": L, "P": P, "MO": MO, "n_local": n_local,
+            "n_fixed": n_fixed, "n_pts": n_act,
+            "obs_mean": float(n_obs_pt.mean()) if n_act else 0.0,
+            "obs_p95": float(np.percentile(n_obs_pt, 95)) if n_act else 0.0,
+            "obs_max_hit": int((n_obs_pt >= MO).sum()),
+            "n_obs": int(n_obs_pt.sum()),
             "dropped_local": dropped[0], "dropped_pts": dropped[1],
             "dropped_fixed": dropped[2],
         })

@@ -159,9 +159,11 @@ class Tracker:
         self.dbg = {"path": "classic"}
         with Timer("track/motion"):
             n = self._track_with_motion_model(frame)
+        self.dbg["n_after_motion"] = n
         if n < self.cfg.tracking.min_matches_track:
             n = self._track_keyframe(frame)
             self.dbg["used_kf_fallback"] = True
+            self.dbg["n_after_kf"] = n
             if n < self.cfg.tracking.min_matches_track:
                 self.stat.res = False
                 self.stat.num_match_inliers = 10
@@ -172,6 +174,8 @@ class Tracker:
             self._update_local_map(frame)
             self._search_local_points(frame)
             self.stat.num_match_inliers = self._track_local_map(frame)
+        sel = frame.mappoint[frame.mappoint >= 0]
+        self.dbg["n_gmm_inliers"] = int((self.world.pt_assoc_comp[sel] >= 0).sum())
         self._plausibility_gate(frame)
         self.stat.ratio_map = self._ratio_map(frame)
         self._cleanup(frame)
@@ -342,13 +346,20 @@ class Tracker:
 
     def _track_with_motion_model(self, frame: Frame) -> int:
         """tracking.cpp:334-393."""
+        w = self.world
         th = self.cfg.tracking.motion_search_radius
         n = self._search_frame_to_frame(frame, th)
+        self.dbg["n_motion_match"] = n
         if n < self.cfg.tracking.min_matches_motion:
             frame.mappoint[:] = -1
             n = self._search_frame_to_frame(frame, 2 * th)
+            self.dbg["used_wide_retry"] = True
+            self.dbg["n_motion_match"] = n
         if n < self.cfg.tracking.min_matches_motion:
             return 0
+        m = frame.mappoint[frame.mappoint >= 0]
+        self.dbg["n_tmp_edges"] = int((w.pt_n_obs[m] < 1).sum())
+        self.dbg["n_per_edges"] = int((w.pt_n_obs[m] >= 1).sum())
         self.dbg["q_pred"] = frame.q_cw.copy()
         self.dbg["t_pred"] = frame.t_cw.copy()
         self._run_pose_opt(frame, anchored=True)
@@ -851,11 +862,12 @@ class Tracker:
         frame.is_outlier[:] = False
 
         self.stat = TrackStat(res=True)
-        self.stat.num_match_inliers = int(
-            (w.pt_n_obs[frame.mappoint[frame.mappoint >= 0]] > 0).sum())
+        selg = frame.mappoint[frame.mappoint >= 0]
+        self.stat.num_match_inliers = int((w.pt_n_obs[selg] > 0).sum())
         self.dbg = {
             "path": "fused",
             "n_motion_match": int(n_mot),
+            "n_gmm_inliers": int((w.pt_assoc_comp[selg] >= 0).sum()),
             "n_anchors": int(n_anc),
             "q_pred": pend.q_pred,
             "t_pred": pend.t_pred,

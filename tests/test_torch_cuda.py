@@ -609,3 +609,63 @@ def test_sharded_paths_on_card(device, ranks, backend):
     for sharded, whole in ((res, ref), (nres, nref)):
         gap = entry.ba_gap(sharded, whole)
         assert entry.ba_gap_fault(gap, ranks) is None, gap
+
+
+# The entry layer (`eval/`) on the card, each run in a child process with
+# its own time limit: the online protocol must not synchronize the whole
+# device while the mapper thread captures a CUDA graph (that fails with
+# cudaErrorStreamCaptureUnsupported), and the stress run's sharded ranks
+# are processes that a failed rank would leave waiting.
+
+
+def _eval_fixture(root: str, n_components: int, n_frames: int) -> None:
+    """The room fixture as the entry layer reads it, the port's
+    `synthetic` asset names pointed at it."""
+    import shutil
+
+    from gmmloc_tpu_torch.eval import room_fixture, synthetic
+
+    gmm_path, gt_path = room_fixture.write_room_fixture(root, n_components=n_components,
+                                                        n_frames=n_frames)
+    os.makedirs(os.path.join(root, "gt"), exist_ok=True)
+    shutil.copy(gt_path, os.path.join(root, "gt", "V1_01_easy.txt"))
+    synthetic.GT_DIR, synthetic.V1_GMM, synthetic.V2_GMM = (os.path.join(root, "gt"),
+                                                            gmm_path, gmm_path)
+
+
+def case_evaluate_online(root: str) -> dict:
+    from gmmloc_tpu_torch.eval import evaluate
+
+    _eval_fixture(root, 3300, 150 + 80 + 50)
+    summary = evaluate.main(["--runs", "1", "--frames", "80", "--start", "150",
+                             "--reloc", "0", "--online", "--pace", "20", "--out", root])
+    return summary["V1_01_easy"]["runs"][0]
+
+
+def test_evaluate_online_on_card(device, tmp_path):
+    """`evaluate.main --online --pace 20` at full width: 80 frames
+    complete, none lost, keyframes mapped on the mapper thread and the
+    run's rmse under 5 cm."""
+    m = _in_child("case_evaluate_online", timeout=600.0, root=str(tmp_path))
+    assert m["completed"] and m["frames"] == 80 and m["lost"] == 0, m
+    assert m["kfs"] >= 2 and m["ba_stats"]["n_solves"] >= 1, m
+    assert m["rmse"] < 0.05, m
+
+
+def case_stress_sharded(root: str) -> dict:
+    from gmmloc_tpu_torch.eval import stress
+
+    _eval_fixture(root, 3300, 60)
+    out = stress.main(["10", "--ranks", "2"])
+    sh = out["sharded"]
+    return dict(K=out["K"], pad=out["pad"], differs=sh["differs"], size=sh["size"],
+                visible=int(out["single"]["visible"].sum()),
+                candidates=int((out["single"]["cand"] >= 0).sum()))
+
+
+def test_stress_sharded_association_on_card(device, tmp_path):
+    """The stress run's render and association on the 10x map (33000
+    components) over two gloo ranks on the card: equal to one device."""
+    r = _in_child("case_stress_sharded", timeout=600.0, root=str(tmp_path))
+    assert r["K"] == 33000 and r["pad"] == 33024 and r["size"] == 2, r
+    assert r["differs"] == [] and r["visible"] > 0 and r["candidates"] > 0, r

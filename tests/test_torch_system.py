@@ -188,7 +188,11 @@ def test_port_imports_without_jax():
         "          'gmmloc_tpu_torch.utils.control', 'gmmloc_tpu_torch.utils.native',\n"
         "          'gmmloc_tpu_torch.pipeline.dataloader', 'gmmloc_tpu_torch.pipeline.checkpoint',\n"
         "          'gmmloc_tpu_torch.pipeline.html_viewer', 'gmmloc_tpu_torch.pipeline.live_viewer',\n"
-        "          'gmmloc_tpu_torch.pipeline.visualizer', 'gmmloc_tpu_torch.eval.disk_run'):\n"
+        "          'gmmloc_tpu_torch.pipeline.visualizer', 'gmmloc_tpu_torch.eval.disk_run',\n"
+        "          'gmmloc_tpu_torch.eval.evaluate', 'gmmloc_tpu_torch.eval.evaluate_image',\n"
+        "          'gmmloc_tpu_torch.eval.diagnose', 'gmmloc_tpu_torch.eval.view_map',\n"
+        "          'gmmloc_tpu_torch.eval.stress', 'gmmloc_tpu_torch.eval.run_synthetic',\n"
+        "          'gmmloc_tpu_torch.eval.run_image_pipeline'):\n"
         "    assert m in mods, m\n"
         "assert 'jax.numpy' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('gmmloc_tpu.')]\n"
