@@ -149,7 +149,19 @@ Phases, each of which raises on failure (exit code non-zero):
      the 1x map: lost, recovered, under RELOC_MAX_ERR_M. Prints frames/s,
      p50/p95 of the host time per step and the rmse per run, the ms of
      render and association.
- 13. K3 exact against its plain version at every (N, M) the paths
+ 13. [bench]: the port's bench (`eval/bench.py`, the twin of the JAX
+     package's `bench.py`) through its `main`: each end-to-end line in
+     its child process (online 160 frames / 60 warm-up, offline 100 / 25,
+     image 90 / 40, all from frame 150 of the bench's own room fixture,
+     each child after the port's `prewarm`), then the components at full
+     width in this process. Checks the headline line has `bench.py`'s
+     keys and the detail line every key `bench.py` sets plus the window
+     percentiles, `e2e_status` "ok", each child's mapper drained, a graph
+     captured at every BA tier of each child's prewarm, K1-K3 launched on
+     every line and K4 at least once per frame of the image line, and
+     K1-K3 by the components. Each step logs `[bench] ...` before it
+     runs.
+ 14. K3 exact against its plain version at every (N, M) the paths
      launched it at (`hamming_matrix.shapes`).
 
 Launch counts are set to 0 just before each path and read just after
@@ -192,7 +204,11 @@ JAX_IMG_MAX_ERR_M = 0.029363626255594893
 # online runs (tests/test_chained_pipeline.py:72, tests/test_online_mode.py:46).
 # On the room fixture its production configuration is less accurate than
 # the slice: 7.22 against 4.04 cm max over 120 frames at feat_cap 256, the
-# port 7.16 against 4.17 (tools/torch_production_reference.py, on the CPU)
+# port 7.16 against 4.17 (tools/torch_production_reference.py, on the CPU).
+# The [eval] protocol runs at depth 1 (200 frames from frame 150) are held
+# to it too: on those frames the JAX package's own max error is 6.95 / 6.62
+# cm (runs 0 / 1, feat_cap 256), the port's 6.63 / 6.67
+# (tests/test_torch_eval_protocol.py, on the CPU)
 PROD_MAX_ERR_M = 0.08
 
 # [reloc]: the runs of the JAX package's tests/test_relocalize.py on the
@@ -224,6 +240,8 @@ EVAL_ONLINE_FRAMES = 120
 EVAL_IMG_FRAMES = 120
 DIAG_FRAMES = 100
 STRESS_FACTOR = 10
+# [bench]: (frames, warm-up frames) of each end-to-end line
+BENCH_LINES = dict(online=(160, 60), offline=(100, 25), image=(90, 40))
 
 
 def k3_shapes():
@@ -1544,6 +1562,53 @@ def run_eval_phase(device, card) -> dict:
     return outs
 
 
+def run_bench_phase(card) -> dict:
+    """[bench]: `eval/bench.py`'s `main` at BENCH_LINES' frame counts (the
+    end-to-end lines in child processes, the components here). Returns
+    {path: {"launches": ...}} for the bench's lines and its components."""
+    from gmmloc_tpu_torch.eval import bench, slice_run
+
+    t_phase = time.perf_counter()
+    argv = ["--fixture", os.path.join(slice_run.default_fixture_dir(), "bench")]
+    for line, (n, warm) in BENCH_LINES.items():
+        argv += [f"--{line}-frames", str(n), f"--{line}-warm", str(warm)]
+    log(f"[bench] start: eval.bench.main({' '.join(argv)})")
+    reset_launches()
+    res = bench.main(argv)
+    read_launches()
+    if res is None:
+        raise RuntimeError("[bench] a child of the bench failed (its output above)")
+    head, detail = res["headline"], res["detail"]
+    missing = [k for k in bench.DETAIL_KEYS + bench.PERCENTILE_KEYS if k not in detail]
+    if sorted(head) != sorted(bench.HEADLINE_KEYS) or head["metric"] != bench.METRIC or missing:
+        raise RuntimeError(f"[bench] headline {head}; detail keys missing {missing}")
+    if detail["e2e_status"] != "ok":
+        raise RuntimeError(f"[bench] e2e_status {detail['e2e_status']!r}")
+    outs = {}
+    for line, st in res["lines"].items():
+        caps = st["prewarm_ba_graph_captures"]
+        if not st["drained"] or not caps or min(caps.values()) < 1:
+            raise RuntimeError(f"[bench] {line}: mapper drained {st['drained']}, prewarm "
+                               f"graph captures per BA tier {caps}")
+        need = ("K1", "K2", "K3", "K4") if line == "image" else ("K1", "K2", "K3")
+        if [k for k in need if st["launches"][k] <= 0] or (
+                line == "image" and st["launches"]["K4"] < st["frames"]):
+            raise RuntimeError(f"[bench] {line}: launches {st['launches']} over "
+                               f"{st['frames']} frames")
+        outs[f"bench_{line}"] = dict(launches=st["launches"])
+    comp = res["component_launches"]
+    if [k for k in ("K1", "K2", "K3") if comp[k] <= 0]:
+        raise RuntimeError(f"[bench] components: launches {comp}")
+    outs["bench_components"] = dict(launches=comp)
+    log(f"[result] bench: {json.dumps(head)}; offline {detail['e2e_offline_fps']} frames/s, "
+        f"image {detail['image_path_fps']} frames/s; components (ms) "
+        + json.dumps({k: detail[k] for k in ("match_ms", "pose_opt_ms", "fused_track_step_ms",
+                                             "render_view_ms", "search_corr_ms",
+                                             "local_ba_ms")}) + f" on {card}")
+    log(f"[time] [bench] {time.perf_counter() - t_phase:.1f}s")
+    return outs
+
+
 def check_host_libs():
     """No PIL, PyYAML or matplotlib: the machines with the card have none."""
     mods = sorted(m for m in ("PIL", "yaml", "matplotlib") if m in sys.modules)
@@ -1647,6 +1712,8 @@ def main() -> int:
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [multi]")
     evals = run_eval_phase(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [eval]")
+    benches = run_bench_phase(card)
+    log(f"[time] {time.perf_counter() - t_start:.1f}s to the end of [bench]")
     k3_paths = check_path_shapes(device, card)
     log(f"[time] {time.perf_counter() - t_start:.1f}s in all")
     check_imports(jax_before)
@@ -1666,7 +1733,8 @@ def main() -> int:
                                   multi=multi["launches"][key],
                                   **{n: evals[n]["launches"][key]
                                      for n in ("eval_feature", "eval_online", "eval_image",
-                                               "diagnose", "stress")}),
+                                               "diagnose", "stress")},
+                                  **{n: o["launches"][key] for n, o in benches.items()}),
             max_abs_err=k["max_abs_err"], ms=k["ms"], plain_ms=k["plain_ms"],
             bound_ms=k["bound_ms"], bound_by=k["bound_by"],
             library_ms=k["library_ms"], shape=k["shape"],

@@ -72,6 +72,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -303,6 +304,15 @@ def _pcg_solve(S, b, iters: int):
     return x
 
 
+_CAPTURES = threading.local()
+
+
+def thread_graph_captures() -> int:
+    """The LM-iteration graphs solves on the calling thread have captured
+    so far (`pipeline/prewarm.py` counts them per window tier)."""
+    return getattr(_CAPTURES, "n", 0)
+
+
 def solve_local_ba(
     cam,
     prob: BAProblem,
@@ -483,6 +493,7 @@ def solve_local_ba(
                     for x, n in zip(st, nxt):
                         x.copy_(n)
                     graph.capture_end()
+                    _CAPTURES.n = thread_graph_captures() + 1
             else:
                 graph.replay()
                 done = done_g

@@ -669,3 +669,28 @@ def test_stress_sharded_association_on_card(device, tmp_path):
     r = _in_child("case_stress_sharded", timeout=600.0, root=str(tmp_path))
     assert r["K"] == 33000 and r["pad"] == 33024 and r["size"] == 2, r
     assert r["differs"] == [] and r["visible"] > 0 and r["candidates"] > 0, r
+
+
+def case_bench_components(root: str) -> dict:
+    import types
+
+    from gmmloc_tpu_torch.eval import bench
+
+    bench.write_fixture(root, 60)
+    bench.reset_launches()
+    detail = bench.components(types.SimpleNamespace(feat_cap=None, fixture=root),
+                              torch.device("cuda", 0), log=lambda *a: None)
+    return dict(detail=detail, launches=bench.read_launches())
+
+
+def test_bench_components_on_card(device, tmp_path):
+    """The bench's components at full width on the card (CUDA-event
+    times): every time positive, the composite finite, and K1 (the pose
+    solve), K2 and K3 (the fused track step, the match) launched."""
+    r = _in_child("case_bench_components", timeout=600.0, root=str(tmp_path))
+    d = r["detail"]
+    for k in ("match_ms", "pose_opt_ms", "fused_track_step_ms", "render_view_ms",
+              "search_corr_ms", "local_ba_ms", "frame_core_ms"):
+        assert d[k] > 0, (k, d)
+    assert np.isfinite(d["kernel_composite_fps"]) and d["ba_solves_per_sec"] > 0, d
+    assert all(r["launches"][k] > 0 for k in ("K1", "K2", "K3")), r["launches"]

@@ -17,6 +17,24 @@ rmse within 1 mm; the run record's keys those of the JAX tool but
 `fetches_per_frame`; every BA statistic of the JAX package's BA record,
 key for key, on the same windows. The helpers here are shared by the
 port's other entry-layer tests.
+
+Run as a script, the module compares the two protocols over a longer
+segment, on the fixture and frames of `chip_smoke.py` `[eval]` (a):
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_eval_protocol.py
+        [--package jax,port] [--runs 2] [--frames 200] [--start 150]
+        [--feat-cap 256] [--depth 1] [--out DIR]
+
+It writes the room fixture as `[eval]` does (3300 components, seed 0, a
+trajectory of start + frames + 50 frames), points both packages' asset
+names at it and runs each package's `run_once` at the JAX defaults
+(depth 1, pipelined, mirror, packed; `--depth 4` the device-chained
+pipeline of the bench's offline line) with `--damping 0.9 --reloc 1`, at
+`--feat-cap` (features: feat_cap - 16, local map: 4 x feat_cap). It
+prints one JSON line per run: the max and mean camera-centre error
+against the ground truth from the run's TUM file (as
+`chip_smoke._tum_check` reads it), the frame of the max, the rmse,
+keyframes and BA solves.
 """
 
 import dataclasses
@@ -278,3 +296,76 @@ def test_evaluate_config_overrides_as_jax(jax_evaluate, monkeypatch):
         jax_evaluate.main()
     assert dataclasses.asdict(jax_config(cfg)) == dataclasses.asdict(ref["cfg"])
     assert isinstance(ref["cfg"], jax_config_mod.SystemConfig)
+
+
+def protocol_reference(package: str, a, fx: dict, traj) -> list:
+    """`a.runs` runs of one package's `run_once` on the fixture `fx`
+    (the script's arguments `a`); prints and returns their records."""
+    import time
+
+    args = evaluate.build_parser().parse_args(["--damping", "0.9", "--reloc", "1",
+                                               "--depth", str(a.depth)])
+    cfg = evaluate.make_config(args)
+    if a.feat_cap < 1280:
+        cfg = cfg.replace(
+            frame=dataclasses.replace(cfg.frame, feat_cap=a.feat_cap,
+                                      num_features=a.feat_cap - 16),
+            tracking=dataclasses.replace(cfg.tracking, fused_local_map_cap=4 * a.feat_cap))
+    for mod in (synthetic, jax_synthetic):
+        mod.GT_DIR, mod.V1_GMM, mod.V2_GMM = fx["gt_dir"], fx["gmm"], fx["gmm"]
+    if package == "jax":
+        tool, cfg = load_tool("evaluate"), jax_config(cfg)
+        gmap = tool.mixture.load(fx["gmm"], pad_to=cfg.caps.gmm_components_pad,
+                                 neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
+                                 neighbor_cap=cfg.gmm.neighbor_cap)
+        run = lambda r, path: tool.run_once(cfg, "V1_01_easy", r, a.frames, a.start,  # noqa: E731
+                                            gmap, path, vocabulary="train")
+    else:
+        evaluate._VOCAB_CACHE.clear()
+        gmap = evaluate.load_map(cfg, "V1_01_easy", "cpu")
+        run = lambda r, path: evaluate.run_once(cfg, "V1_01_easy", r, a.frames, a.start,  # noqa: E731
+                                                gmap, path, vocabulary="train",
+                                                device="cpu")
+    _, _, t_wc = traj
+    out = []
+    for r in range(a.runs):
+        t0 = time.perf_counter()
+        path = os.path.join(a.out, f"{package}{r}_depth{a.depth}.txt")
+        m = run(r, path)
+        _, p_est, _ = ate.load_tum(path)
+        err = np.linalg.norm(p_est - t_wc[a.start:a.start + len(p_est)], axis=1)
+        out.append(dict(package=package, run=r, feat_cap=a.feat_cap, depth=a.depth,
+                        start=a.start, frames=m["frames"], lost=m["lost"],
+                        max_err_m=float(err.max()), max_err_frame=a.start + int(err.argmax()),
+                        mean_err_m=float(err.mean()), rmse_m=float(m["rmse"]),
+                        kfs=int(m["kfs"]), ba_solves=m.get("ba_stats", {}).get("n_solves"),
+                        seconds=time.perf_counter() - t0, device="cpu"))
+        print(json.dumps(out[-1]), flush=True)
+    return out
+
+
+def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="the evaluation protocol of both packages")
+    ap.add_argument("--package", default="jax,port")
+    ap.add_argument("--runs", type=int, default=2)
+    ap.add_argument("--frames", type=int, default=200)
+    ap.add_argument("--start", type=int, default=150)
+    ap.add_argument("--feat-cap", type=int, default=256)
+    ap.add_argument("--depth", type=int, default=1)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "protocol_reference"))
+    a = ap.parse_args()
+    gmm_path, gt_path = room_fixture.write_room_fixture(
+        a.out, n_components=3300, n_frames=a.start + a.frames + 50)
+    gt_dir = os.path.join(a.out, "gt")
+    os.makedirs(gt_dir, exist_ok=True)
+    shutil.copy(gt_path, os.path.join(gt_dir, "V1_01_easy.txt"))
+    traj = synthetic.load_gt_trajectory(gt_path)
+    for package in a.package.split(","):
+        protocol_reference(package, a, dict(gt_dir=gt_dir, gmm=gmm_path), traj)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

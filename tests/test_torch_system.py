@@ -192,7 +192,8 @@ def test_port_imports_without_jax():
         "          'gmmloc_tpu_torch.eval.evaluate', 'gmmloc_tpu_torch.eval.evaluate_image',\n"
         "          'gmmloc_tpu_torch.eval.diagnose', 'gmmloc_tpu_torch.eval.view_map',\n"
         "          'gmmloc_tpu_torch.eval.stress', 'gmmloc_tpu_torch.eval.run_synthetic',\n"
-        "          'gmmloc_tpu_torch.eval.run_image_pipeline'):\n"
+        "          'gmmloc_tpu_torch.eval.run_image_pipeline', 'gmmloc_tpu_torch.eval.bench',\n"
+        "          'gmmloc_tpu_torch.pipeline.prewarm'):\n"
         "    assert m in mods, m\n"
         "assert 'jax.numpy' not in sys.modules\n"
         "assert not [m for m in sys.modules if m.startswith('gmmloc_tpu.')]\n"
@@ -234,6 +235,8 @@ def test_entry_points_default_to_cuda():
     card they raise instead of falling back to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is usable")
+    from gmmloc_tpu_torch.geometry import camera as cam_mod
+    from gmmloc_tpu_torch.pipeline import prewarm
     from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
 
     cfg = slice_config()
@@ -244,6 +247,8 @@ def test_entry_points_default_to_cuda():
         GMMLocSystem(cfg, gmap)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ImageFrontend(slice_run.image_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        prewarm.prewarm(cfg, cam_mod.CameraParams.from_config(cfg.camera))
 
 
 @pytest.mark.parametrize("option", ["pose_impl", "schur_impl"])
