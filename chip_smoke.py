@@ -162,7 +162,8 @@ Phases, each of which raises on failure (exit code non-zero):
      K1-K3 by the components. Each step logs `[bench] ...` before it
      runs.
  14. K3 exact against its plain version at every (N, M) the paths
-     launched it at (`hamming_matrix.shapes`).
+     launched it at (`hamming_matrix.shapes`; the bench's children
+     report theirs in their `stats` line).
 
 Launch counts are set to 0 just before each path and read just after
 it; launches made to compare a kernel with its plain version do not
@@ -1595,7 +1596,12 @@ def run_bench_phase(card) -> dict:
                 line == "image" and st["launches"]["K4"] < st["frames"]):
             raise RuntimeError(f"[bench] {line}: launches {st['launches']} over "
                                f"{st['frames']} frames")
-        outs[f"bench_{line}"] = dict(launches=st["launches"])
+        # the child's K3 shapes join the paths' exactness check
+        shapes = {tuple(s) for s in st["k3_shapes"]}
+        if not shapes:
+            raise RuntimeError(f"[bench] {line}: the child reported no K3 shapes")
+        PATH_K3_SHAPES.update(shapes)
+        outs[f"bench_{line}"] = dict(launches=st["launches"], k3_shapes=len(shapes))
     comp = res["component_launches"]
     if [k for k in ("K1", "K2", "K3") if comp[k] <= 0]:
         raise RuntimeError(f"[bench] components: launches {comp}")

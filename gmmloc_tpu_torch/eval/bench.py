@@ -23,13 +23,13 @@ Each end-to-end line runs in a child process (`--child LINE`) that makes
 or renders its frames off the clock, runs the port's `prewarm`, then
 writes one `idx perf_counter res` line per completed frame, then after
 `flush()` and `stop()` a `stats` line (launches of the four kernels over
-the run, the mapper drained, the max camera-centre error, the share of
-measured frames whose pose solve kept GMM anchors, what prewarm took)
-and `done`. The parent reads the window statistics (`window_stats`, the
-definition of `bench.py`), then times the components on the card: the
-guided match, the pose solve (K1), the fused track step (K1, K2, K3),
-render and correspondence search on the fixture map padded to 3328, and
-the local BA at the production window.
+the run and K3's distinct (N, M), the mapper drained, the max
+camera-centre error, the share of measured frames whose pose solve kept
+GMM anchors, what prewarm took) and `done`. The parent reads the window
+statistics (`window_stats`, the definition of `bench.py`), then times
+the components on the card: the guided match, the pose solve (K1), the
+fused track step (K1, K2, K3), render and correspondence search on the
+fixture map padded to 3328, and the local BA at the production window.
 
 Prints the detail JSON (every key `bench.py` sets, with the percentile
 keys, the per-line max error and anchored share, and the timer) on
@@ -172,10 +172,48 @@ def kernel_wrappers() -> dict:
 def reset_launches() -> None:
     for fn in kernel_wrappers().values():
         fn.launches = 0
+    kernel_wrappers()["K3"].shapes.clear()
 
 
 def read_launches() -> dict:
     return {k: fn.launches for k, fn in kernel_wrappers().items()}
+
+
+def read_k3_shapes() -> list:
+    """The distinct (N, M) K3 was launched at since `reset_launches`."""
+    return sorted(kernel_wrappers()["K3"].shapes)
+
+
+def map_kwargs(cfg) -> dict:
+    """`mixture.load`'s arguments for the lines' map."""
+    return dict(pad_to=cfg.caps.gmm_components_pad,
+                neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
+                neighbor_cap=cfg.gmm.neighbor_cap)
+
+
+def load_map(cfg, device):
+    """The fixture's map (`point_assets`) on `device`, as the lines load it."""
+    from ..gmm import mixture
+    from . import synthetic
+
+    return mixture.load(synthetic.V1_GMM, device, **map_kwargs(cfg))
+
+
+def feature_frames(cfg, n_frames: int, make_sequence=None):
+    """The feature lines' first n_frames frames from frame START
+    (N_LANDMARKS landmarks, made up front) and the whole ground-truth
+    trajectory: (frames, q_wc, t_wc), frame i at trajectory index
+    START + i. The assets are the port's names (`point_assets`);
+    `make_sequence` is the port's unless another is given."""
+    from . import synthetic
+
+    make_sequence = make_sequence or synthetic.make_sequence
+    fe, ts, q_wc, t_wc = make_sequence(
+        cfg, gt_path=f"{synthetic.GT_DIR}/V1_01_easy.txt", gmm_path=synthetic.V1_GMM,
+        n_landmarks=N_LANDMARKS, seed=0, disp_noise=0.1, pixel_noise=0.25, drop_frac=0.1)
+    frames = [fe.make_frame(i, ts[START + i], q_wc[START + i], t_wc[START + i])
+              for i in range(n_frames)]
+    return frames, q_wc, t_wc
 
 
 def run_child(line: str, fixture: str, n_frames: int, warm: int, out, device="cuda",
@@ -184,16 +222,13 @@ def run_child(line: str, fixture: str, n_frames: int, warm: int, out, device="cu
     lines, 30000 landmarks) or rendered (image line, 9000 sprites) off the
     clock, the port's prewarm, then one `idx perf_counter res` row per
     completed frame written to `out`. Returns (stats, system, frames)."""
-    from ..gmm import mixture
     from ..pipeline import prewarm as prewarm_mod
     from ..pipeline.system import GMMLocSystem
-    from . import slice_run, synthetic
+    from . import slice_run
 
     point_assets(fixture)
     cfg = line_config(line, feat_cap)
-    gmap = mixture.load(synthetic.V1_GMM, device, pad_to=cfg.caps.gmm_components_pad,
-                        neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
-                        neighbor_cap=cfg.gmm.neighbor_cap)
+    gmap = load_map(cfg, device)
     if line == "image":
         from ..pipeline.frontend import ImageFrontend
         from .evaluate_image import render_pairs
@@ -202,12 +237,7 @@ def run_child(line: str, fixture: str, n_frames: int, warm: int, out, device="cu
                                                n_landmarks=IMG_LANDMARKS)
         frontend = ImageFrontend(cfg, device=device)
     else:
-        fe, ts, q_wc, t_wc = synthetic.make_sequence(
-            cfg, gt_path=f"{synthetic.GT_DIR}/V1_01_easy.txt", gmm_path=synthetic.V1_GMM,
-            n_landmarks=N_LANDMARKS, seed=0, disp_noise=0.1, pixel_noise=0.25,
-            drop_frac=0.1)
-        frames = [fe.make_frame(i, ts[START + i], q_wc[START + i], t_wc[START + i])
-                  for i in range(n_frames)]
+        frames, q_wc, t_wc = feature_frames(cfg, n_frames)
     system = GMMLocSystem(cfg, gmap, device)
     stats = dict(line=line, device=str(device), feat_cap=cfg.frame.feat_cap,
                  frames_asked=n_frames, warm=warm)
@@ -253,7 +283,7 @@ def run_child(line: str, fixture: str, n_frames: int, warm: int, out, device="cu
     system.flush()
     system.stop()
     anchors.record()
-    launches = read_launches()
+    launches, k3_shapes = read_launches(), read_k3_shapes()
     mapper = system.online
     n_done = len(done)
     errs = slice_run.pose_errors(frames[:n_done], t_wc[START:START + n_done]) \
@@ -262,6 +292,7 @@ def run_child(line: str, fixture: str, n_frames: int, warm: int, out, device="cu
     meas = np.array(anchors.n_anchors[-n_meas:]) if n_meas > 0 else np.zeros(0)
     stats.update(
         frames=n_done, track_failed=bool(system.track_failed), launches=launches,
+        k3_shapes=k3_shapes,
         first_frame_ms=(done[0] - t_loop) * 1e3 if done else None,
         drained=mapper is None or (mapper.count_queue() == 0 and mapper._thread is None),
         online=mapper is not None, depth=system._depth,

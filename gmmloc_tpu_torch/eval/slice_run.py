@@ -202,6 +202,27 @@ def stream_sync(device):
     return lambda: torch.cuda.current_stream().synchronize()
 
 
+def pace_mapper(system) -> None:
+    """Wait until the mapper thread has finished every keyframe queued so
+    far, then order the caller's stream after the mapper's. Called after
+    each step, it fixes the two threads' order (the tracker never runs
+    ahead of the mapper), so an online run repeats bit for bit. Nothing
+    to wait for offline. Works on the JAX package's system as well."""
+    mapper = system.online
+    if mapper is None:
+        return
+    timeout_s = 300.0          # a bound for a stuck mapper, not a pace
+    deadline = time.monotonic() + timeout_s
+    while mapper.count_queue() or not mapper.is_idle:
+        getattr(mapper, "check", lambda: None)()     # the port's: raise its failure
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"the mapper did not finish its keyframes in {timeout_s} s")
+        time.sleep(0.001)
+    stream = getattr(mapper, "_stream", None)
+    if stream is not None:
+        torch.cuda.current_stream(stream.device).wait_stream(stream)
+
+
 def _check_tracked(system, st, i):
     if system.track_failed or (st is not None and not st.res):
         raise RuntimeError(f"tracking failed at frame {i}")

@@ -15,7 +15,9 @@ package's root `bench.py`, on the CPU.
     same depth-4 configuration on the same frames, with float32 BA
     products in both, within `test_torch_chained.py`'s 5 mm / 0.05 deg;
   - (d) a child that fails, or stalls, makes `main` return no result and
-    print no headline.
+    print no headline;
+  - (e) a child run with `--no-prewarm` skips prewarm and still writes
+    every `stats` key the parent reads.
 """
 
 import ast
@@ -220,3 +222,20 @@ def test_failed_child_gives_no_headline(tmp_path, monkeypatch, capsys, case):
     assert "child failed on purpose" in err and "[bench] online child" in err
     if case == "stalls":
         assert "no frame for 2 s" in err
+
+
+def test_child_without_prewarm_reports_its_stats(tmp_path):
+    """`--child LINE --no-prewarm` (the first-frame comparison's child):
+    no prewarm, and the `stats` line has every key the parent reads."""
+    fx, log = str(tmp_path / "fx"), str(tmp_path / "frames.log")
+    n = 22
+    bench.write_fixture(fx, bench.START + n + 50)
+    assert bench.main(["--child", "offline", "--cpu", "--no-prewarm", "--log", log,
+                       "--frames", str(n), "--warm", "2", "--fixture", fx,
+                       "--feat-cap", "256"]) == 0
+    rows, stats, done = bench.read_log(log)
+    assert done and len(rows) == n and [r[0] for r in rows] == list(range(n))
+    assert stats["prewarm_s"] is None and "prewarm_calls" not in stats
+    assert stats["frames"] == n and stats["drained"] and not stats["track_failed"]
+    assert stats["k3_shapes"] == [] and stats["launches"] == dict(K1=0, K2=0, K3=0, K4=0)
+    assert 0 < stats["max_err_m"] < 0.5 and stats["keyframes"] > 1

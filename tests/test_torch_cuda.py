@@ -694,3 +694,56 @@ def test_bench_components_on_card(device, tmp_path):
         assert d[k] > 0, (k, d)
     assert np.isfinite(d["kernel_composite_fps"]) and d["ba_solves_per_sec"] > 0, d
     assert all(r["launches"][k] > 0 for k in ("K1", "K2", "K3")), r["launches"]
+
+
+def case_prewarm_run(root: str, line: str, prewarm: bool, n: int) -> dict:
+    """The bench's `line` (offline or online, full width) for n frames
+    from frame 150 in a fresh process, after the port's prewarm or
+    without it; online, the mapper paced (`slice_run.pace_mapper`) so the
+    run repeats bit for bit. Returns the poses, keyframes and BA solves."""
+    from gmmloc_tpu_torch.eval import bench, slice_run
+    from gmmloc_tpu_torch.pipeline import prewarm as prewarm_mod
+    from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
+
+    dev = torch.device("cuda", 0)
+    bench.point_assets(root)
+    cfg = bench.line_config(line)
+    frames, q_wc, t_wc = bench.feature_frames(cfg, n)
+    system = GMMLocSystem(cfg, bench.load_map(cfg, dev), dev)
+    captures = {}
+    if prewarm:
+        prewarm_mod.prewarm(cfg, system.cam, dev, stats=captures)
+    for i, f in enumerate(frames):
+        system.step(f, q_wc[bench.START + i], t_wc[bench.START + i])
+        assert not system.track_failed, i
+        slice_run.pace_mapper(system)
+    system.flush()
+    system.stop()
+    w = system.world
+    return dict(q=[np.asarray(f.q_cw).tolist() for f in frames],
+                t=[np.asarray(f.t_cw).tolist() for f in frames],
+                keyframes=sorted(int(x) for x in w.kf_frame_idx[w.kf_valid]),
+                ba_solves=len(system.localizer.ba_stats),
+                captures=captures.get("ba_graph_captures", {}))
+
+
+@pytest.mark.parametrize("line", ["offline", "online"])
+def test_prewarm_leaves_card_runs_unchanged(device, tmp_path, line):
+    """The production configurations on the card, each in a fresh process
+    (module loads, library handles, allocator and graph pools all new):
+    the run after `prewarm` gives the poses of the run without it, bit for
+    bit, with the same keyframes and BA solves; prewarm captured graphs."""
+    from gmmloc_tpu_torch.eval import bench
+
+    n = 60
+    bench.write_fixture(str(tmp_path), bench.START + n + 50)
+    runs = [_in_child("case_prewarm_run", timeout=600.0, root=str(tmp_path), line=line,
+                      prewarm=p, n=n) for p in (False, True)]
+    without, with_ = runs
+    assert with_["captures"] and min(with_["captures"].values()) >= 1, with_["captures"]
+    assert without["ba_solves"] > 0 and len(without["keyframes"]) > 1, without
+    assert (with_["keyframes"], with_["ba_solves"]) == (without["keyframes"],
+                                                         without["ba_solves"])
+    bad = [i for i in range(n)
+           if with_["q"][i] != without["q"][i] or with_["t"][i] != without["t"][i]]
+    assert not bad, f"poses differ from frame {bad[0]} on ({len(bad)} frames)"

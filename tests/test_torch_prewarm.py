@@ -10,7 +10,8 @@ JAX package's `gmmloc_tpu/pipeline/prewarm.py`, on the CPU.
     program is built: the count is the JAX module's own loop structure;
   - a system stepped 20 frames after `prewarm` gives the poses, keyframes
     and points of one stepped without it, bit for bit, and prewarm draws
-    no random numbers and starts no host timer.
+    no random numbers and starts no host timer; so does the online
+    configuration, its mapper paced (`slice_run.pace_mapper`).
 """
 
 import dataclasses
@@ -149,3 +150,32 @@ def test_system_after_prewarm_equals_system_without(fixture_paths):
         np.testing.assert_array_equal(ta, tb)
     assert kf_a == kf_b and len(kf_a) > 1
     assert (n_a, pts_a) == (n_b, pts_b)
+
+
+def test_online_system_after_prewarm_equals_system_without(fixture_paths):
+    """The online configuration (the mapper on its own thread), paced so
+    that the mapper finishes each keyframe before the next frame: prewarm
+    leaves the mapper thread's BA, and so every pose, unchanged."""
+    cfg = _small(slice_run.production_config(True, **WIDTHS))
+    kw = dict(pad_to=512, neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh,
+              neighbor_cap=cfg.gmm.neighbor_cap)
+    runs = []
+    for with_prewarm in (False, True):
+        system = GMMLocSystem(cfg, mixture.load(fixture_paths[0], "cpu", **kw), "cpu")
+        if with_prewarm:
+            assert prewarm.prewarm(cfg, system.cam, "cpu") > 0
+        frames, q_wc, t_wc = _frames(synthetic, cfg, fixture_paths, 20)
+        for i, f in enumerate(frames):
+            system.step(f, q_wc[i], t_wc[i])
+            assert not system.track_failed, f"tracking failed at {i}"
+            slice_run.pace_mapper(system)
+        system.flush()
+        system.stop()
+        kf = sorted(int(x) for x in system.world.kf_frame_idx[system.world.kf_valid])
+        runs.append(([(f.q_cw.copy(), f.t_cw.copy()) for f in frames], kf,
+                     len(system.localizer.ba_stats)))
+    (poses_a, kf_a, ba_a), (poses_b, kf_b, ba_b) = runs
+    for (qa, ta), (qb, tb) in zip(poses_a, poses_b):
+        np.testing.assert_array_equal(qa, qb)
+        np.testing.assert_array_equal(ta, tb)
+    assert kf_a == kf_b and len(kf_a) > 1 and ba_a == ba_b > 0
