@@ -108,12 +108,15 @@ class ImageFrontend:
 
     def _packed(self, left, right):
         det = self.detector
-        pyr_l, pyr_r = det.build_pyramid(left), det.build_pyramid(right)
-        det_l, det_r = det.detect_pair_from_levels(pyr_l, pyr_r)
-        u_right, depth = stereo.compute_stereo_matches(
-            pyr_l, pyr_r, det_l.uv, det_l.octave, det_l.desc, det_l.valid,
-            det_r.uv, det_r.octave, det_r.desc, det_r.valid,
-            self.scale_factors, bf=self.bf, baseline=self.baseline)
+        with Timer("frontend/pyramid"):
+            pyr_l, pyr_r = det.build_pyramid(left), det.build_pyramid(right)
+        with Timer("frontend/detect"):
+            det_l, det_r = det.detect_pair_from_levels(pyr_l, pyr_r)
+        with Timer("frontend/stereo"):
+            u_right, depth = stereo.compute_stereo_matches(
+                pyr_l, pyr_r, det_l.uv, det_l.octave, det_l.desc, det_l.valid,
+                det_r.uv, det_r.octave, det_r.desc, det_r.valid,
+                self.scale_factors, bf=self.bf, baseline=self.baseline)
         table = torch.cat([
             det_l.uv, u_right[:, None], depth[:, None],
             det_l.octave.to(torch.float32)[:, None], det_l.angle[:, None],
@@ -124,10 +127,12 @@ class ImageFrontend:
     def dispatch(self, idx: int, timestamp: float, left, right) -> FrontendPending:
         """Enqueue the front end of one uint8 stereo pair and the copy of
         its result to the host; returns without waiting. Host time in
-        the `frontend/dispatch` timer."""
+        the `frontend/dispatch` timer, its stages in `frontend/prepare`,
+        `frontend/pyramid`, `frontend/detect` and `frontend/stereo`."""
         with Timer("frontend/dispatch"):
-            table, desc = self._packed(*self._prepare(np.asarray(left, np.uint8),
-                                                      np.asarray(right, np.uint8)))
+            with Timer("frontend/prepare"):
+                pair = self._prepare(np.asarray(left, np.uint8), np.asarray(right, np.uint8))
+            table, desc = self._packed(*pair)
             event = None
             if self.device.type == "cuda":
                 host_t = torch.empty(table.shape, dtype=table.dtype, pin_memory=True)
@@ -141,18 +146,19 @@ class ImageFrontend:
                                event=event, n=table.shape[0])
 
     def complete(self, pend: FrontendPending) -> Frame:
-        """Wait for one dispatched frame and build its Frame (the wait in
-        the `frontend/wait` timer)."""
-        if pend.event is not None:
-            with Timer("frontend/wait"):
-                pend.event.synchronize()
-        out = pend.table.numpy()
-        n = pend.n
-        frame = make_frame(
-            pend.idx, pend.timestamp, out[:, 0:2], out[:, 2], out[:, 3],
-            out[:, 4].astype(np.int32), out[:, 5], pend.desc.numpy(),
-            max(self.cfg.frame.feat_cap, n))
-        frame.valid[:n] = out[:, 6] > 0.5
+        """Wait for one dispatched frame and build its Frame (host time in
+        the `frontend/complete` timer, the wait in `frontend/wait`)."""
+        with Timer("frontend/complete"):
+            if pend.event is not None:
+                with Timer("frontend/wait"):
+                    pend.event.synchronize()
+            out = pend.table.numpy()
+            n = pend.n
+            frame = make_frame(
+                pend.idx, pend.timestamp, out[:, 0:2], out[:, 2], out[:, 3],
+                out[:, 4].astype(np.int32), out[:, 5], pend.desc.numpy(),
+                max(self.cfg.frame.feat_cap, n))
+            frame.valid[:n] = out[:, 6] > 0.5
         return frame
 
     def process_packed(self, idx: int, timestamp: float, left, right) -> Frame:

@@ -273,7 +273,12 @@ class GMMLocSystem:
         """One iteration of the main loop (gmmloc.cpp:128-195). In
         pipelined mode the returned stat belongs to the previous frame
         (None until one completes); call flush() after the last frame.
-        Raises the mapper thread's exception, if it died of one."""
+        Raises the mapper thread's exception, if it died of one. Host time
+        in the `system/step` timer."""
+        with Timer("system/step"):
+            return self._step(frame, gt_q_wc, gt_t_wc)
+
+    def _step(self, frame: Frame, gt_q_wc=None, gt_t_wc=None) -> Optional[TrackStat]:
         if self.online is not None:
             self.online.check()
         tk = self.cfg.tracking
@@ -288,7 +293,8 @@ class GMMLocSystem:
             # lost recovery and bootstrap run synchronously
             return self._step_sync(frame, gt_q_wc, gt_t_wc)
         self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
-        pend = self.tracker.fused_dispatch(frame)
+        with Timer("system/dispatch"):
+            pend = self.tracker.fused_dispatch(frame)
         if pend is None:
             # too few carried landmarks: the synchronous path (as the
             # reference package does, it re-runs the dispatch prep)
@@ -324,37 +330,40 @@ class GMMLocSystem:
             self.init_pose_guess(frame, gt_q_wc, gt_t_wc)
             self.tracker.host_vel = (self.vel_q, self.vel_t)
             self.n_primes += 1
-            pend = self.tracker.fused_dispatch(frame, prime_chain=True)
+            with Timer("system/dispatch"):
+                pend = self.tracker.fused_dispatch(frame, prime_chain=True)
             if pend is None:
                 return self._track_and_map(frame)
             self._pendq.append(pend)
             return stat_prev
-        self._pendq.append(self.tracker.fused_dispatch_chained(frame))
+        with Timer("system/dispatch"):
+            self._pendq.append(self.tracker.fused_dispatch_chained(frame))
         return stat_prev
 
     def _drain_one(self) -> Optional[TrackStat]:
         """Drain the oldest in-flight frame: read-back, host bookkeeping,
         keyframe policy and mapping. An anomaly re-runs the frames still
         in flight synchronously (their device results assumed a pose
-        chain it invalidated)."""
+        chain it invalidated). Host time in the `system/drain` timer."""
         pend = self._pendq.popleft()
-        stat = self.tracker.fused_complete(pend)
-        # the system's frame chain rotates at drain time (poses are final
-        # here; init_pose_guess rotates it on the synchronous paths)
-        self.last_frame = self.curr_frame
-        self.curr_frame = pend.frame
-        if stat is None:
-            # under-match: the classic path for this frame, then rewind
-            st = self._track_and_map(pend.frame, classic_only=True)
+        with Timer("system/drain"):
+            stat = self.tracker.fused_complete(pend)
+            # the system's frame chain rotates at drain time (poses are final
+            # here; init_pose_guess rotates it on the synchronous paths)
+            self.last_frame = self.curr_frame
+            self.curr_frame = pend.frame
+            if stat is None:
+                # under-match: the classic path for this frame, then rewind
+                st = self._track_and_map(pend.frame, classic_only=True)
+                self._update_host_vel()
+                return self._rewind_rest(st)
+            st = self._track_and_map(pend.frame, pre_stat=stat)
             self._update_host_vel()
-            return self._rewind_rest(st)
-        st = self._track_and_map(pend.frame, pre_stat=stat)
-        self._update_host_vel()
-        if self.track_failed or self.lost or self.tracker.dbg.get("coasted"):
-            # a loss, or a coasted pose that replaced the solved one the
-            # device chain continued from
-            return self._rewind_rest(st)
-        return st
+            if self.track_failed or self.lost or self.tracker.dbg.get("coasted"):
+                # a loss, or a coasted pose that replaced the solved one the
+                # device chain continued from
+                return self._rewind_rest(st)
+            return st
 
     def _drain_all(self) -> Optional[TrackStat]:
         st = None
@@ -367,7 +376,8 @@ class GMMLocSystem:
 
     def _rewind_rest(self, stat_first) -> Optional[TrackStat]:
         """Re-run the frames still in flight synchronously (re-priming the
-        chain); each costs one synchronous frame."""
+        chain); each costs one synchronous frame, timed inside the drain
+        that rewound it (not as a `system/step` of its own)."""
         frames = [p.frame for p in self._pendq]
         self._pendq.clear()
         self.tracker.invalidate_chain()
@@ -378,7 +388,7 @@ class GMMLocSystem:
             f._dev_cur = None        # its pose and assignments are reset
             f.mappoint[:] = -1
             f.is_outlier[:] = False
-            s = self.step(f)
+            s = self._step(f)
             st = s if s is not None else st
             if self.track_failed:
                 break
@@ -397,16 +407,18 @@ class GMMLocSystem:
         if self._pending is None:
             return None
         pend, self._pending = self._pending, None
-        stat = self.tracker.fused_complete(pend)
-        if stat is None:
-            # under-matched: the classic path for this frame
-            return self._track_and_map(pend.frame, classic_only=True)
-        return self._track_and_map(pend.frame, pre_stat=stat)
+        with Timer("system/drain"):
+            stat = self.tracker.fused_complete(pend)
+            if stat is None:
+                # under-matched: the classic path for this frame
+                return self._track_and_map(pend.frame, classic_only=True)
+            return self._track_and_map(pend.frame, pre_stat=stat)
 
     def flush(self) -> Optional[TrackStat]:
         """Drain every in-flight frame (end of sequence)."""
-        st = self.drain()
-        st2 = self._drain_all()
+        with Timer("system/flush"):
+            st = self.drain()
+            st2 = self._drain_all()
         return st2 if st2 is not None else st
 
     def run(self, frames: Iterable, gt_q_wc=None, gt_t_wc=None,
@@ -510,11 +522,12 @@ class GMMLocSystem:
 
     def _map_keyframe(self, kf: int) -> None:
         """Queue the keyframe for the mapper thread, or map it now."""
-        if self.online is not None:
-            self.online.insert_keyframe(kf)
-        else:
-            self.localizer.insert_keyframe(kf)
-            self.localizer.spin_once()
+        with Timer("system/map_keyframe"):
+            if self.online is not None:
+                self.online.insert_keyframe(kf)
+            else:
+                self.localizer.insert_keyframe(kf)
+                self.localizer.spin_once()
 
     def export_trajectory(self, path: Optional[str] = None):
         """(timestamps (N,), q_wc (N,4), t_wc (N,3)) of every tracked

@@ -10,11 +10,17 @@ mapping, offline) or the production configuration (the JAX package's
 defaults at pipeline depth 4; `--online` adds the mapper thread) -- on the
 feature path (synthetic feature frames) or the image path (rendered
 stereo pairs through the ORB front end), and profiles `--frames` frames
-after the warm-up with `torch.profiler`: wall time, summed device
-(kernel) time, the device's idle share over the window, the host-timer
-table per stage, and the top kernels by device time. With the mapper
-thread the kernels of both streams are summed, so the idle share is a
-lower bound where they overlap. Needs a CUDA device.
+after the warm-up with `torch.profiler`. Prints the host-timer table per
+span (wall, self and off-CPU totals), the top device operations by device
+time, the device's idle time split by the innermost program range
+("gl:<tag>", `utils/timing.py`) the profiling thread was in meanwhile,
+and a JSON summary: wall time, summed operation time, the idle share (one
+minus the union of the device intervals over every stream, so the
+mapper's stream and the tracker's overlapping count once) and the idle
+seconds per range. The union and the idle split are the benchmark's own
+(`portbench.trace.reduce_events`); this tool only cuts the program's
+nested ranges into the innermost segments that reducer splits over.
+Needs a CUDA device.
 """
 
 import argparse
@@ -24,11 +30,60 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from portbench.trace import WINDOW, reduce_events  # noqa: E402
+
+OUTSIDE = "(outside gl:)"
+
+
+def innermost(ranges):
+    """Properly nested (start, end, name) ranges of one thread -> disjoint
+    (start, end, name) segments, each labelled by the innermost range open
+    over it; time outside every range gets no segment."""
+    out, stack, t = [], [], None
+
+    def close_until(s):
+        nonlocal t
+        while stack and stack[-1][1] <= s:
+            _, end, name = stack.pop()
+            if end > t:
+                out.append((t, end, name))
+                t = end
+
+    for s, e, name in sorted(ranges, key=lambda r: (r[0], -r[1])):
+        close_until(s)
+        if stack and s > t:
+            out.append((t, s, stack[-1][2]))
+        stack.append((s, e, name))
+        t = s
+    close_until(float("inf"))
+    return out
+
+
+def reduce_trace(events):
+    """`events`: (on the card, name, start ns, end ns, thread id). Hands the
+    card's operations, the window and the innermost segments of the "gl:*"
+    ranges of the thread that opened the window to the benchmark's reducer
+    (`portbench.trace.reduce_events`, whose idle split runs over the
+    segments as over its own spans) and returns its reduction, the idle
+    time outside every range under `OUTSIDE`."""
+    ((w0, w1, tid),) = [(s, e, t) for card, n, s, e, t in events if n == WINDOW and not card]
+    out = [("CPU", WINDOW, w0, w1)]
+    # the window's own range shows on the card as a user annotation: no operation
+    out += [("CUDA", n, s, e) for card, n, s, e, _ in events if card and n != WINDOW]
+    ranges = [(s, e, n[3:]) for card, n, s, e, t in events
+              if not card and n.startswith("gl:") and t == tid]
+    out += [("CPU", "pb:" + n, s, e) for s, e, n in innermost(ranges)]
+    red = reduce_events(out)
+    red["idle_gaps"] = [[OUTSIDE if k == "harness" else k, v] for k, v in red["idle_gaps"]]
+    return red
 
 
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("feature", "image"), default="feature")
@@ -40,7 +95,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device available", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
     from gmmloc_tpu_torch.eval import slice_run
     from gmmloc_tpu_torch.pipeline.system import GMMLocSystem
 
@@ -72,25 +126,30 @@ def main() -> int:
     slice_run.timing_table(reset=True)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        steps = go()
+        with record_function(WINDOW):
+            steps = go()
         wall = time.perf_counter() - t0
-    system.stop()
+        # the profiler's exit synchronizes the device, which fails while
+        # the mapper thread captures a CUDA graph: join the mapper first
+        system.stop()
     print(slice_run.timing_table(), flush=True)
-    # kernels (and copies) as the device ran them: one stream, no overlap
-    kern = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in kern)
-    rows = [dict(name=e.key[:90], calls=e.count, device_ms=e.self_device_time_total / 1e3)
-            for e in sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:25]]
+    events = [(e.device_type() == DeviceType.CUDA, e.name(), e.start_ns(), e.end_ns(),
+               getattr(e, "start_thread_id", int)())
+              for e in prof.profiler.kineto_results.events()]
+    red = reduce_trace(events)
+    op_s = sum(t for _, t in red["kernels"].values())
+    for name, (calls, t) in sorted(red["kernels"].items(), key=lambda kv: -kv[1][1])[:25]:
+        print(f"  {t * 1e3:10.3f} ms  {calls:6d}  {name[:90]}")
+    print("idle seconds by the innermost program range (the ten largest):")
+    for name, t in red["idle_gaps"]:
+        print(f"  {t:9.4f} s  {name}")
     summary = dict(
-        path=a.path, config=a.config, online=a.online, frames=a.frames, wall_s=wall, fps=a.frames / wall,
-        frame_ms_p50=float(1e3 * torch.tensor(steps["step_s"]).median()),
-        device_ms=dev_us / 1e3, device_busy_share=dev_us / 1e6 / wall,
-        idle_share=1.0 - dev_us / 1e6 / wall, n_kernel_kinds=len(kern),
-        card=torch.cuda.get_device_name(0),
+        path=a.path, config=a.config, online=a.online, frames=a.frames, wall_s=wall,
+        fps=a.frames / wall, frame_ms_p50=float(1e3 * torch.tensor(steps["step_s"]).median()),
+        window_s=red["window_s"], device_op_s=op_s, busy_s=red["busy_s"],
+        idle_share=1.0 - red["busy_s"] / red["window_s"], n_op_kinds=len(red["kernels"]),
+        idle_s_by_range=dict(red["idle_gaps"]), card=torch.cuda.get_device_name(0),
     )
-    for r in rows:
-        print(f"  {r['device_ms']:10.3f} ms  {r['calls']:6d}  {r['name']}")
     print(json.dumps(summary), flush=True)
     return 0
 
