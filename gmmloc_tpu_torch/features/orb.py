@@ -22,6 +22,8 @@ Numerics against the JAX package:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -59,6 +61,16 @@ def _circle_mask():
 
 CIRCLE = _circle_mask()
 _BIT_WEIGHTS = [1, 2, 4, 8, 16, 32, 64, 128]
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(device):
+    """PATTERN (float32) and the bit weights (uint8) on `device`, made
+    once per device: the per-frame pass copies nothing from the host (a
+    copy from pageable memory waits for the stream, and a CUDA graph
+    cannot hold one)."""
+    return (torch.from_numpy(PATTERN).to(device),
+            torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=device))
 
 
 def gather_patches(img, uv):
@@ -166,7 +178,7 @@ def _steered_points(uv, angle_deg):
     x' = x cos - y sin, y' = x sin + y cos, plus the centre."""
     a = torch.deg2rad(angle_deg)
     ca, sa = torch.cos(a)[:, None, None], torch.sin(a)[:, None, None]
-    pat = torch.from_numpy(PATTERN).to(uv.device)
+    pat = _tables(uv.device)[0]
     px = pat[None, :, :, 0] * ca - pat[None, :, :, 1] * sa
     py = pat[None, :, :, 0] * sa + pat[None, :, :, 1] * ca
     return (torch.round(uv[:, None, None, 0] + px).to(torch.int64),
@@ -177,7 +189,7 @@ def _pack_bits(vals):
     """(N,256,2) sampled pairs -> (N,32) uint8 (bit b of byte k is test
     8k+b, little-endian)."""
     bits = (vals[:, :, 0] < vals[:, :, 1]).to(torch.uint8).reshape(-1, 32, 8)
-    w = torch.tensor(_BIT_WEIGHTS, dtype=torch.uint8, device=vals.device)
+    w = _tables(vals.device)[1]
     return torch.sum(bits * w, dim=-1).to(torch.uint8)
 
 

@@ -13,6 +13,8 @@ values (`torch.nanmedian` returns the lower one).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import matching
@@ -51,6 +53,15 @@ def _atlas(pyr, offs, H, W0):
     return a
 
 
+@functools.lru_cache(maxsize=None)
+def _level_tables(offs, heights, widths, device):
+    """The levels' row offsets, heights and widths in the atlas as int64
+    tensors on `device`, made once per geometry and device: the per-frame
+    pass copies nothing from the host (a copy from pageable memory waits
+    for the stream, and a CUDA graph cannot hold one)."""
+    return tuple(torch.tensor(v, device=device) for v in (offs, heights, widths))
+
+
 def refine_subpixel(pyr_l, pyr_r, uv_l, octave_l, u_r0, matched, scale_factors,
                     bf: float, min_z: float):
     """SAD subpixel refinement (frame.cpp:279-335): 11x11 windows, +-5
@@ -68,16 +79,14 @@ def refine_subpixel(pyr_l, pyr_r, uv_l, octave_l, u_r0, matched, scale_factors,
     ixl = torch.round(su_l).to(torch.int64)
     ixr = torch.round(su_r).to(torch.int64)
 
-    heights = [im.shape[0] for im in pyr_l]
-    widths = [im.shape[1] for im in pyr_l]
+    heights = tuple(im.shape[0] for im in pyr_l)
+    widths = tuple(im.shape[1] for im in pyr_l)
     offs = [0]
     for h in heights[:-1]:
         offs.append(offs[-1] + h)
     H, W0 = offs[-1] + heights[-1], widths[0]
     al, ar = _atlas(pyr_l, offs, H, W0), _atlas(pyr_r, offs, H, W0)
-    off_v = torch.tensor(offs, device=dev)[octave_l]
-    h_v = torch.tensor(heights, device=dev)[octave_l]
-    w_v = torch.tensor(widths, device=dev)[octave_l]
+    off_v, h_v, w_v = (t[octave_l] for t in _level_tables(tuple(offs), heights, widths, dev))
     y_lo = off_v[:, None, None]
     y_hi = (off_v + h_v - 1)[:, None, None]
     x_hi = (w_v - 1)[:, None, None]
@@ -131,8 +140,8 @@ def masked_median(x, mask):
     lo, hi = torch.floor(q), torch.ceil(q)
     hw = q - lo
     top = torch.clamp(n - 1.0, min=0.0)
-    lo_v = v[torch.clamp(lo, min=0.0).minimum(top).to(torch.int64)]
-    hi_v = v[torch.clamp(hi, min=0.0).minimum(top).to(torch.int64)]
+    # one gather of both: a 0-d index tensor would be read back to the host
+    lo_v, hi_v = v[torch.stack([lo, hi]).clamp(min=0.0).minimum(top).to(torch.int64)]
     med = lo_v * (1.0 - hw) + hi_v * hw
     return torch.where(n > 0, med, torch.zeros_like(med))
 
@@ -142,8 +151,9 @@ def compute_stereo_matches(pyr_l, pyr_r, uv_l, octave_l, desc_l, valid_l,
                            bf: float, baseline: float):
     """The stereo pipeline with the median SAD outlier cut (frame.cpp:
     337-348: keep sad <= 1.5 * 1.4 * median). Returns (u_right (NL,),
-    depth (NL,)), -1 where unmatched."""
-    sf = torch.as_tensor(scale_factors, dtype=torch.float32, device=uv_l.device)
+    depth (NL,)), -1 where unmatched. `scale_factors` is a tensor (the
+    front end keeps it on the device)."""
+    sf = scale_factors.to(uv_l.device, torch.float32)
     best, _ = match_stereo(uv_l, octave_l, desc_l, valid_l, uv_r, octave_r, desc_r,
                            valid_r, sf, bf=bf, min_z=baseline)
     matched = best >= 0

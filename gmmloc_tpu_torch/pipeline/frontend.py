@@ -16,6 +16,17 @@ both images -> stereo matching -> Frame.
   Calling dispatch(i + 1) before complete(i) double-buffers the front end
   against the tracker, as the reference overlaps its extractor threads
   with the main loop (gmmloc.cpp:241-249).
+
+On the card the pass is some thousands of small kernels, whose launches
+cost the host about ten times what they cost the card. So the pass is
+captured once per image shape into a CUDA graph and replayed for every
+later pair: the first pair of a shape runs eagerly (it makes the library
+handles and loads the kernels), the second is captured and replayed, and
+each later one is copied into the graph's input buffers and replayed, all
+on the caller's stream. The pass copies nothing from the host and reads
+nothing back, so the graph holds all of it, K3 and K4 included; the
+replay gives the eager pass's results bit for bit. On the CPU, and in
+`process()`, every pass is eager.
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ import torch
 from ..config import SystemConfig
 from ..features import detect, stereo
 from ..tracking.frame import Frame, make_frame
-from ..utils.device import resolve
+from ..utils import cuda_build
+from ..utils.device import gc_paused, resolve
 from ..utils.timing import Timer
 from .rectify import Rectifier, equalize_hist
 
@@ -42,6 +54,41 @@ class FrontendPending:
     desc: torch.Tensor     # (N, 32) uint8 on the host
     event: Optional[torch.cuda.Event]
     n: int
+
+
+class _PassGraph:
+    """`ImageFrontend._packed` captured once into a CUDA graph, with the
+    static pair it reads, the (table, desc) it writes and the hand
+    kernels' launches inside it. Its intermediates live in the graph's
+    private memory pool, which goes back with the graph."""
+
+    def __init__(self, pass_fn, left, right):
+        self.left, self.right = left.clone(), right.clone()
+        self.graph = torch.cuda.CUDAGraph()
+        # on a stream of its own (the legacy default stream cannot be
+        # captured), thread_local: the mapper thread launches, allocates
+        # and captures its own graphs meanwhile
+        side = torch.cuda.Stream(left.device)
+        with torch.cuda.stream(side), cuda_build.captured_launches() as self.launches, \
+                gc_paused():
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                self.out = pass_fn(self.left, self.right)
+            finally:
+                self.graph.capture_end()
+
+    def replay(self, left, right):
+        """The pass on a new pair of the captured shape, on the current
+        stream: the copies into the static pair follow the last replay's
+        reads in stream order, as the caller's copies of `out` precede the
+        next replay."""
+        self.left.copy_(left)
+        self.right.copy_(right)
+        with Timer("frontend/replay"):
+            self.graph.replay()
+        for wrapper, n in self.launches.items():
+            cuda_build.count_launch(wrapper, times=n)
+        return self.out
 
 
 class ImageFrontend:
@@ -66,6 +113,8 @@ class ImageFrontend:
                                           device=self.device)
         self.baseline = cam.bf / cam.fx
         self.bf = cam.bf
+        # prepared pair shapes -> their _PassGraph (None: one eager pass run)
+        self._graphs = {}
 
     def _prepare(self, left, right):
         """Images -> float32 (H,W) on the device, rectified and equalised
@@ -107,6 +156,9 @@ class ImageFrontend:
     # ---------------- one pass per frame (main path) -------------------
 
     def _packed(self, left, right):
+        """The pass of one prepared pair -> the (N, 8) table and the (N, 32)
+        descriptors. It makes no tensor from host data and reads nothing
+        back to the host, so that a CUDA graph can hold it."""
         det = self.detector
         with Timer("frontend/pyramid"):
             pyr_l, pyr_r = det.build_pyramid(left), det.build_pyramid(right)
@@ -124,15 +176,30 @@ class ImageFrontend:
         ], dim=1)
         return table, det_l.desc
 
+    def _run(self, left, right):
+        """`_packed` on the card from a CUDA graph after the first pair of
+        each shape (the module's docstring); on the CPU eager."""
+        if self.device.type != "cuda":
+            return self._packed(left, right)
+        key = (left.shape, right.shape)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return self._packed(left, right)
+        if self._graphs[key] is None:
+            self._graphs[key] = _PassGraph(self._packed, left, right)
+        return self._graphs[key].replay(left, right)
+
     def dispatch(self, idx: int, timestamp: float, left, right) -> FrontendPending:
         """Enqueue the front end of one uint8 stereo pair and the copy of
         its result to the host; returns without waiting. Host time in
-        the `frontend/dispatch` timer, its stages in `frontend/prepare`,
-        `frontend/pyramid`, `frontend/detect` and `frontend/stereo`."""
+        the `frontend/dispatch` timer, its stages in `frontend/prepare`
+        and, where the pass runs eagerly or is captured,
+        `frontend/pyramid`, `frontend/detect` and `frontend/stereo`, where
+        it replays, `frontend/replay`."""
         with Timer("frontend/dispatch"):
             with Timer("frontend/prepare"):
                 pair = self._prepare(np.asarray(left, np.uint8), np.asarray(right, np.uint8))
-            table, desc = self._packed(*pair)
+            table, desc = self._run(*pair)
             event = None
             if self.device.type == "cuda":
                 host_t = torch.empty(table.shape, dtype=table.dtype, pin_memory=True)

@@ -79,6 +79,7 @@ import torch
 
 from . import factors
 from ..geometry import se3
+from ..utils.device import gc_paused
 
 CHI2_MONO = 5.991
 CHI2_STEREO = 7.815
@@ -313,6 +314,35 @@ def thread_graph_captures() -> int:
     return getattr(_CAPTURES, "n", 0)
 
 
+_REUSE = threading.local()      # .graphs: the cache of `reuse_graphs`, if any
+
+
+@contextlib.contextmanager
+def reuse_graphs(graphs: dict):
+    """Solves on this thread inside the block keep their LM-iteration
+    graphs in `graphs` (the caller's, one per problem shape and Huber
+    setting) and replay them in later solves of the same shape, with the
+    new problem copied into the graph's inputs: such a solve launches no
+    eager iteration and captures nothing. Outside a block every solve
+    captures its own graphs and frees them."""
+    before = getattr(_REUSE, "graphs", None)
+    _REUSE.graphs = graphs
+    try:
+        yield graphs
+    finally:
+        _REUSE.graphs = before
+
+
+class _StageGraph(NamedTuple):
+    """One stage's captured LM iteration: the tensors it reads (`inputs`)
+    and updates (`st`), and its stop flag."""
+
+    graph: "torch.cuda.CUDAGraph"
+    inputs: list
+    st: list
+    done: torch.Tensor
+
+
 def solve_local_ba(
     cam,
     prob: BAProblem,
@@ -344,7 +374,9 @@ def solve_local_ba(
     launch takes and hands back the GIL, which a tracker thread launching
     beside the mapper makes several times dearer (tools/gil_probe.py).
     The replay runs the captured kernels on the same values, so the
-    stages take the same steps.
+    stages take the same steps. Inside `reuse_graphs` a later solve of
+    the same shape replays the graphs an earlier one captured, from its
+    first iteration on.
 
     `reduce_sum(t)` returns t summed over the ranks of a sharded solve;
     with it the sums over points and observations accumulate in float64
@@ -356,6 +388,13 @@ def solve_local_ba(
                          f"{LINEAR_SOLVERS}")
     # the JAX "flatpm" path takes linear_solver and solves by LU all the same
     use_cg = linear_solver == "cg" and schur_impl != "flatpm"
+    graphs = None
+    if prob.pts.device.type == "cuda" and cuda_graph and reduce_sum is None:
+        graphs = getattr(_REUSE, "graphs", None)
+    if graphs is not None:
+        # a graph kept for later solves reads these tensors: they must be
+        # its own, not views of the caller's tables
+        prob = BAProblem(*(x.clone() for x in prob))
     L = n_free
     P, MO = prob.obs_cam.shape
     C = prob.cam_q.shape[0]
@@ -471,12 +510,27 @@ def solve_local_ba(
         nxt.append(torch.minimum(new_cost, cost))
         return nxt, done
 
+    def graph_inputs(active_obs, active_str):
+        """Every tensor an LM iteration reads besides its state."""
+        return [*prob, huber_delta, onehot, eye3, eye6, eye6L, fixed_rows, fix6, fm,
+                prior_info, active_obs, active_str]
+
+    # what else a captured iteration holds: shapes, dtypes and constants
+    key = (tuple((x.shape, x.dtype) for x in graph_inputs(prob.obs_valid, prob.pt_valid)),
+           str(dev), L, tuple(cam), ba_lambda2, term_gain, use_bf16, schur_impl, use_cg,
+           cg_iters)
+
     def run_stage(state, active_obs, active_str, use_huber, iters):
         cam_q, cam_t, pts, products, lam, it_tot = state
         cost = cost_from(products, cam_q, cam_t, pts, active_obs, active_str, use_huber)
         st = [cam_q, cam_t, pts, *products, lam, cost]
         step = lambda s: iterate(s, active_obs, active_str, use_huber)  # noqa: E731
         graph = None
+        kept = graphs.get(key + (use_huber,)) if graphs is not None else None
+        if kept is not None:
+            for x, n in zip(kept.inputs + kept.st, graph_inputs(active_obs, active_str) + st):
+                x.copy_(n)
+            graph, st, done_g = kept.graph, kept.st, kept.done
         for _ in range(iters):
             if graph is None:
                 st, done = step(st)
@@ -488,12 +542,16 @@ def solve_local_ba(
                     # allocate meanwhile. The graph's memory pool goes back
                     # to the caching allocator with the graph.
                     graph = torch.cuda.CUDAGraph()
-                    graph.capture_begin(capture_error_mode="thread_local")
-                    nxt, done_g = step(st)
-                    for x, n in zip(st, nxt):
-                        x.copy_(n)
-                    graph.capture_end()
+                    with gc_paused():
+                        graph.capture_begin(capture_error_mode="thread_local")
+                        nxt, done_g = step(st)
+                        for x, n in zip(st, nxt):
+                            x.copy_(n)
+                        graph.capture_end()
                     _CAPTURES.n = thread_graph_captures() + 1
+                    if graphs is not None:
+                        graphs[key + (use_huber,)] = _StageGraph(
+                            graph, graph_inputs(active_obs, active_str), st, done_g)
             else:
                 graph.replay()
                 done = done_g
@@ -531,8 +589,11 @@ def solve_local_ba(
         for x in (*state[:3], *state[3], state[4], active_obs, active_str):
             x.record_stream(caller)
     cam_q_f, cam_t_f, pts_f = state[0], state[1], state[2]
-
     chi2_f, depth_ok_f = state[3][3], state[3][4]
+    if graphs is not None:
+        # the kept graphs' state: the next solve overwrites it
+        cam_q_f, cam_t_f, pts_f, chi2_f = (x.clone() for x in (cam_q_f, cam_t_f, pts_f,
+                                                               chi2_f))
     obs_bad = prob.obs_valid & obs_exists & ((chi2_f > chi2_th) | ~depth_ok_f)
     rs_f = factors.pt2plane_residual(pts_f, prob.str_mean, prob.str_normal)
     str_drop = pt_valid & (prob.str_type == STR_DEG) & (

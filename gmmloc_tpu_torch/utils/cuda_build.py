@@ -15,6 +15,8 @@ import time.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import glob
 import hashlib
@@ -133,13 +135,38 @@ def check(err: int, name: str) -> None:
 
 
 _count_lock = threading.Lock()
+_tallies = {}      # thread id -> its capture's launches, while it captures
 
 
-def count_launch(wrapper, shape=None) -> None:
-    """Add one to `wrapper.launches` and, where given, the launch's shape
-    to the set `wrapper.shapes` (the tracker and the mapper thread launch
-    the same kernels, so the update takes a lock)."""
+def count_launch(wrapper, shape=None, times: int = 1) -> None:
+    """Add `times` to `wrapper.launches` and, where given, the launch's
+    shape to the set `wrapper.shapes` (the tracker and the mapper thread
+    launch the same kernels, so the update takes a lock). A launch this
+    thread makes inside `captured_launches` goes into a CUDA graph and
+    runs only when the graph replays, so it goes to that block's tally
+    instead, which the replays count."""
     with _count_lock:
-        wrapper.launches += 1
         if shape is not None:
             wrapper.shapes.add(shape)
+        tally = _tallies.get(threading.get_ident()) if _tallies else None
+        if tally is None:
+            wrapper.launches += times
+        else:
+            tally[wrapper] += times
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Around a CUDA graph's capture on this thread: yields a Counter of
+    the kernel launches captured (wrapper -> launches), to be counted with
+    `count_launch(wrapper, times=n)` at each replay. Other threads' launches
+    meanwhile count as usual."""
+    tally = collections.Counter()
+    me = threading.get_ident()
+    with _count_lock:
+        _tallies[me] = tally
+    try:
+        yield tally
+    finally:
+        with _count_lock:
+            del _tallies[me]

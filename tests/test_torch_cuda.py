@@ -162,6 +162,53 @@ def test_image_frontend_on_card_matches_cpu(device):
     assert ((gpu.ur[:n] >= 0) == (cpu.ur[:n] >= 0)).mean() >= 0.95
 
 
+@pytest.mark.parametrize("distribution", ["quota", "octree"])
+def test_image_frontend_graph_replay_equals_eager(device, distribution):
+    """The front end driven as the benchmark drives it (dispatch(i + 1)
+    before complete(i)) over 8 seeded 752x480 pairs: the first pass runs
+    eagerly, the second is captured into a CUDA graph, every later one
+    replays it. Each frame's table and descriptors equal the eager pass
+    (`_packed`) on the same prepared pair bit for bit, and each frame
+    counts the same K3 and K4 launches, one of each."""
+    import dataclasses
+
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.features import cuda_kernels, fast_kernels
+    from gmmloc_tpu_torch.pipeline.frontend import ImageFrontend
+    from gmmloc_tpu_torch.utils import timing
+
+    cfg = slice_run.image_config()
+    cfg = cfg.replace(frame=dataclasses.replace(cfg.frame, detect_distribution=distribution))
+    h, w = cfg.camera.height, cfg.camera.width
+    pairs = []
+    for seed in range(8):
+        rng = np.random.default_rng(seed)
+        img = np.kron(rng.uniform(0, 255, (h // 8, w // 8)), np.ones((8, 8)))
+        img = np.clip(img + rng.normal(0, 4, (h, w)), 0, 255).astype(np.uint8)
+        pairs.append((img, np.roll(img, -(3 + seed), axis=1)))
+    timing.reset()
+    fe, eager = ImageFrontend(cfg, device=device), ImageFrontend(cfg, device=device)
+    kernels = (fast_kernels.fast_score_nms, cuda_kernels.hamming_matrix)
+    launched, got, pend = [], [], None
+    for i, pair in enumerate(pairs + [None]):
+        new = None
+        if pair is not None:
+            n0 = [k.launches for k in kernels]
+            new = fe.dispatch(i, 0.0, *pair)
+            launched.append([k.launches - n for k, n in zip(kernels, n0)])
+        if pend is not None:
+            fe.complete(pend)
+            got.append((pend.table.clone(), pend.desc.clone()))
+        pend = new
+    assert launched == [[1, 1]] * len(pairs)
+    assert timing.REGISTRY.accs["frontend/replay"].count == len(pairs) - 1
+    for (table, desc), pair in zip(got, pairs):
+        ref_table, ref_desc = eager._packed(*eager._prepare(*pair))
+        assert torch.equal(table.view(torch.int32), ref_table.cpu().view(torch.int32))
+        assert torch.equal(desc, ref_desc.cpu())
+        assert (table[:, 6] > 0.5).sum() > 500 and (table[:, 2] >= 0).sum() > 100
+
+
 def test_kernel_wrappers_raise_on_bad_input(device, cam):
     from gmmloc_tpu_torch.features import cuda_kernels, fast_kernels
     from gmmloc_tpu_torch.solver import cuda_pose
@@ -476,6 +523,56 @@ def test_local_ba_graph_replay_equals_eager(device, monkeypatch):
         x = x + 1.0
     th.join()
     assert len(results) == min(4, len(windows))
+    for g, e in results.values():
+        assert g.n_iters == e.n_iters and g.n_iters > 2
+        for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):
+            assert torch.equal(getattr(g, k), getattr(e, k)), k
+
+
+def test_local_ba_reused_graphs_equal_eager(device, monkeypatch):
+    """Inside `reuse_graphs` a solve replays the LM-iteration graphs an
+    earlier solve of the same shape captured, with its own problem copied
+    in: on the BA windows of a 30-frame production run, solved in turn on
+    a second thread, each gives what the eager iterations give, bit for
+    bit, and only the first solve of a window tier captures."""
+    import threading
+
+    from gmmloc_tpu_torch.eval import slice_run
+    from gmmloc_tpu_torch.solver import local_ba
+
+    solve = local_ba.solve_local_ba
+    windows = []
+
+    def record(cam, prob, n_free, **kw):
+        windows.append((cam, prob, n_free, kw))
+        return solve(cam, prob, n_free, **kw)
+
+    monkeypatch.setattr(local_ba, "solve_local_ba", record)
+    system, frames, q_wc, t_wc = _production_system(device, 30, False)
+    slice_run.run(system, frames, q_wc, t_wc, device)
+    assert len(windows) >= 3
+    results, captures = {}, []
+
+    def mapper():
+        graphs = {}
+        with torch.cuda.stream(torch.cuda.Stream(device)), local_ba.reuse_graphs(graphs):
+            for i, (cam, prob, n_free, kw) in enumerate(windows[:5]):
+                n0 = local_ba.thread_graph_captures()
+                results[i] = solve(cam, prob, n_free, **kw)
+                captures.append(local_ba.thread_graph_captures() - n0)
+        for i, (cam, prob, n_free, kw) in enumerate(windows[:5]):
+            results[i] = (results[i], solve(cam, prob, n_free, cuda_graph=False, **kw))
+        torch.cuda.synchronize()
+
+    th = threading.Thread(target=mapper)
+    th.start()
+    x = torch.zeros(1024, device=device)
+    while th.is_alive():                       # launches beside the replays
+        x = x + 1.0
+    th.join()
+    assert len(results) == min(5, len(windows))
+    tiers = [(w[1].obs_cam.shape, w[1].cam_q.shape, w[2]) for w in windows[:5]]
+    assert captures == [2 if t not in tiers[:i] else 0 for i, t in enumerate(tiers)], captures
     for g, e in results.values():
         assert g.n_iters == e.n_iters and g.n_iters > 2
         for k in ("cam_q", "cam_t", "pts", "obs_bad", "str_drop", "obs_chi2", "cost"):

@@ -204,8 +204,8 @@ def test_stereo_given_same_detections(sprite_levels):
                                            dr.uv, dr.octave, dr.desc, dr.valid, sf, bf=bf,
                                            baseline=base, n_levels=8)
     ut, _ = stereo.compute_stereo_matches(_t(sprite_levels["levels_l"]),
-                                          _t(sprite_levels["levels_r"]), *tl, *tr, sf,
-                                          bf=bf, baseline=base)
+                                          _t(sprite_levels["levels_r"]), *tl, *tr,
+                                          torch.from_numpy(sf), bf=bf, baseline=base)
     mj, mt = np.asarray(uj) >= 0, ut.numpy() >= 0
     assert (mj != mt).sum() <= 3 and mj.sum() > 300
 
@@ -316,6 +316,31 @@ def test_process_packed_matches_reference():
     # atan2 over another tensor length takes another vector/scalar split
     # on the CPU: angles may move by an ulp
     np.testing.assert_allclose(per_stage.angle, out.angle, atol=1e-4)
+
+
+@pytest.mark.parametrize("distribution", ["quota", "octree"])
+def test_packed_pass_makes_no_tensor_from_host_data(monkeypatch, distribution):
+    """After the first pair, the one-pass front end's pass
+    (`ImageFrontend._packed`, what the card captures into a CUDA graph)
+    makes no tensor from host data: on the card each would be a copy from
+    pageable memory, which waits for the stream and which a graph cannot
+    hold. Its results are unchanged."""
+    cfg = slice_run.image_config(feat_cap=640, num_features=600)
+    cfg = cfg.replace(frame=dataclasses.replace(cfg.frame, detect_distribution=distribution))
+    fe = frontend.ImageFrontend(cfg, device="cpu")
+    pair = fe._prepare(*_pair(cfg))
+    first = fe._packed(*pair)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a tensor made from host data inside the pass")
+
+    for name in ("tensor", "from_numpy", "as_tensor"):
+        monkeypatch.setattr(torch, name, refuse)
+    again = fe._packed(*pair)
+    monkeypatch.undo()
+    assert first[0].shape == (cfg.frame.num_features, 8)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("fn", ["gather_patches", "ic_angle", "brief_descriptors"])

@@ -16,8 +16,11 @@ subtract / min / max / compare only):
   - K3's form `popc(a) + popc(b) - 2 popc(a & b)`, and the carry-save sum
     of the sweep's ALU variant, equal `hamming_matrix_plain` and the JAX
     package's `matching._hamming_matrix_xla`;
-  - the wrappers' `out=` argument on the CPU.
+  - the wrappers' `out=` argument on the CPU;
+  - the launch counts of kernels captured into a CUDA graph.
 """
+
+import threading
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +32,7 @@ from gmmloc_tpu.features import fast as jfast, matching as jm
 from gmmloc_tpu_torch.eval import kernel_check, slice_run, synthetic
 from gmmloc_tpu_torch.eval.image_synthetic import SpriteRenderer
 from gmmloc_tpu_torch.features import cuda_kernels, fast, fast_kernels
+from gmmloc_tpu_torch.utils import cuda_build
 
 torch.set_num_threads(1)
 
@@ -220,6 +224,64 @@ def test_wrappers_out_argument_on_cpu():
                 torch.empty(96, 260)[:, ::2], img):
         with pytest.raises(ValueError):
             fast_kernels.fast_score_nms(img, out=bad)
+
+
+def test_captured_launches_count_at_each_replay():
+    """A launch this thread makes inside `cuda_build.captured_launches`
+    (a CUDA graph's capture) goes to the capture's tally, with its shape
+    kept, not to the wrapper's count; another thread's launch meanwhile
+    counts as usual; each replay counts the tally once."""
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.shapes = 0, set()
+    with cuda_build.captured_launches() as tally:
+        cuda_build.count_launch(wrapper, (3, 4))
+        other = threading.Thread(target=cuda_build.count_launch, args=(wrapper,))
+        other.start()
+        other.join(timeout=10)
+        assert not other.is_alive()
+    assert wrapper.launches == 1 and tally == {wrapper: 1} and wrapper.shapes == {(3, 4)}
+    for _ in range(3):
+        for w, n in tally.items():
+            cuda_build.count_launch(w, times=n)
+    cuda_build.count_launch(wrapper)
+    assert wrapper.launches == 5
+
+
+def test_gc_paused_nests_across_threads():
+    """`device.gc_paused` (around a CUDA graph's capture) holds the cyclic
+    collector off until the last of overlapping blocks ends, in whatever
+    thread, and leaves it off where it was off before."""
+    import gc
+
+    from gmmloc_tpu_torch.utils.device import gc_paused
+
+    assert gc.isenabled()
+    inner_started, outer_done = threading.Event(), threading.Event()
+    seen = []
+
+    def other():
+        with gc_paused():
+            inner_started.set()
+            outer_done.wait(timeout=10)
+            seen.append(gc.isenabled())
+
+    with gc_paused():
+        th = threading.Thread(target=other)
+        th.start()
+        inner_started.wait(timeout=10)
+    seen.append(gc.isenabled())          # the other thread's block is open
+    outer_done.set()
+    th.join(timeout=10)
+    assert seen == [False, False] and gc.isenabled()
+    gc.disable()
+    try:
+        with gc_paused():
+            pass
+        assert not gc.isenabled()
+    finally:
+        gc.enable()
 
 
 def test_kernel_bounds_count_the_functions_work():
