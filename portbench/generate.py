@@ -19,7 +19,10 @@ file (frame kind, landmark count, noise, warm-up, ceiling rate):
     detections), made in batches of frames on the device from noise drawn
     with a `torch.Generator` (`draw_feature_noise`); `make_feature_frames`
     is the arithmetic, and fed the port's own draws it gives the port's
-    frames;
+    frames; a traffic's camera dropouts make some of them dark
+    (`dark_mask`: every landmark detection dropped, the draws unchanged);
+  - the descriptors a configuration's vocabulary is trained on
+    (`vocabulary_descs`);
   - stereo pairs (`render_pairs`): the port's sprite renderer
     (`eval/image_synthetic.SpriteRenderer`: additive Gaussian splats of
     the landmark world, uint8), in float64 on the device.
@@ -272,13 +275,16 @@ def draw_feature_noise(gen: torch.Generator, K: int, N: int, p: dict, device) ->
 
 
 def make_feature_frames(world: World, q_wc, t_wc, rho, noise: dict, state, p: dict,
-                        device) -> tuple:
+                        device, dark=None) -> tuple:
     """The frames at poses (q_wc, t_wc) (K of them), from `noise`
     (`draw_feature_noise`'s shapes) and the AR(1) noise `state` left by
     the previous frame (None before the first). Returns (frames, state):
     each frame a dict of numpy arrays uv (n,2) f64, ur, depth (n,) f32,
     octave (n,) i64, angle (n,) f64, desc (n,32) u8, in the order the
-    port's synthetic front end lists them."""
+    port's synthetic front end lists them. A frame whose `dark` (K,) is
+    true has every landmark detection dropped (the port's front end at
+    `drop_frac` 1.0) and keeps its spurious ones; the draws are the same
+    either way."""
     f64 = torch.float64
     T = lambda a, dt=f64: torch.as_tensor(np.asarray(a), dtype=dt, device=device)  # noqa: E731
     K = len(t_wc)
@@ -314,6 +320,8 @@ def make_feature_frames(world: World, q_wc, t_wc, rho, noise: dict, state, p: di
     vis &= (u >= margin) & (v >= margin) & (u < W - margin) & (v < H - margin)
     vis &= z < 45.0
     keep = vis & (torch.special.ndtr(ndet) > p["drop_frac"])
+    if dark is not None:
+        keep &= ~torch.as_tensor(np.asarray(dark, bool), device=device)[:, None]
     count = keep.sum(1)
     ids_all = torch.arange(lm.shape[0], device=device, dtype=f64).expand_as(z)
     score = T(world.response, torch.float32)[None].to(f64) + 0.02 * ndet
@@ -371,9 +379,10 @@ def make_feature_frames(world: World, q_wc, t_wc, rho, noise: dict, state, p: di
 
 
 def feature_frames(world: World, q_wc, t_wc, seed: int, p: dict, device,
-                   chunk: int = 32) -> list:
+                   chunk: int = 32, dark=None) -> list:
     """Every frame along (q_wc, t_wc), made `chunk` frames at a time on
-    `device` from a generator seeded with `seed`."""
+    `device` from a generator seeded with `seed`; the frames where `dark`
+    (one flag per pose, or None) is true are dark (`make_feature_frames`)."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     rho = noise_rho(q_wc, t_wc)
@@ -383,9 +392,31 @@ def feature_frames(world: World, q_wc, t_wc, seed: int, p: dict, device,
         sl = slice(k0, min(k0 + chunk, len(t_wc)))
         noise = draw_feature_noise(gen, sl.stop - sl.start, N, p, device)
         out, state = make_feature_frames(world, q_wc[sl], t_wc[sl], rho[sl], noise, state,
-                                         p, device)
+                                         p, device, None if dark is None else dark[sl])
         frames += out
     return frames
+
+
+def dark_mask(n_frames: int, n_warm: int, traffic: dict):
+    """(n_frames,) bool: the dark frames of a traffic with dropouts, None
+    for one without. A dropout of `dark_frames` frames starts every
+    `dark_every` frames from the window's frame `dark_from` (frame
+    `n_warm` of the traffic); the warm-up is never dark."""
+    if "dark_every" not in traffic:
+        return None
+    k = np.arange(n_frames) - n_warm - traffic["dark_from"]
+    return (k >= 0) & (k % traffic["dark_every"] < traffic["dark_frames"])
+
+
+def vocabulary_descs(train: str, means, covs, n_landmarks: int, room_seed: int):
+    """The descriptors a configuration's vocabulary is trained on:
+    "landmark_desc_every_<n>" is every n-th descriptor of the room's
+    landmark world (drawn from the room's seed)."""
+    prefix = "landmark_desc_every_"
+    if not train.startswith(prefix):
+        raise ValueError(f"unknown vocabulary training set {train!r}")
+    world = sample_world(means, covs, n_landmarks, room_seed)
+    return world.desc[::int(train[len(prefix):])]
 
 
 # ---------------------------------------------------------------------------

@@ -22,9 +22,16 @@ sample of what the window produced with the plain reference
 within its limit. The last line of stdout is the result's JSON; the last
 lines of stderr the numbers compared and their limits.
 
+A configuration with a `vocabulary` block gets the program's vocabulary
+trained at set-up (the system then relocalizes after a tracking loss);
+a traffic with camera dropouts (`dark_every`, `dark_frames`, `dark_from`)
+has dark frames in the window, counted neither as tracked nor as failed,
+and each dropout's time to re-anchor (`dropout_readings`).
+
 Exits non-zero with no result when no CUDA card is there (or fewer than
-the cell asks for), when the frames made run out inside the window, or
-when a module of JAX or of the JAX package was loaded.
+the cell asks for), when the frames made run out inside the window, when
+a window of a traffic with dropouts held fewer than its `min_dropouts`,
+or when a module of JAX or of the JAX package was loaded.
 """
 
 from __future__ import annotations
@@ -172,16 +179,26 @@ class Readings:
         self.ate_rmse_m = None
         self.online = False
         self.config = None
+        # a traffic with dropouts (dark frames): one time per dropout that
+        # recovered, from the hand-in of its first lit frame to the return
+        # of the call after which its first pose can be read
+        self.recovery_s = []
+        self.dropouts = 0              # dropouts whose last dark frame was handed in
+        self.recoveries = 0            # the system's relocalizations in the window
 
 
 class Loop:
     """Hands frames to the system in a closed loop and times each frame
     from its hand-in to the return of the call after which its pose can
-    be read (the system has drained it)."""
+    be read: the system has recorded it in the trajectory
+    (`world.frame_infos`). A frame never tracked (a dark frame, a lost
+    one) gets no record and no time."""
 
     def __init__(self, system, tracer, gt, images=None, frontend=None):
         self.system, self.tracer = system, tracer
         self.ts, self.q_wc, self.t_wc = gt
+        self._frame_of = {t: i for i, t in enumerate(self.ts)}
+        self._n_records = 0
         self.images, self.frontend = images, frontend
         self.pend = None              # the dispatched, not yet completed pair
         self.t_trace = None           # when the trace started
@@ -191,15 +208,14 @@ class Loop:
         self.recording = False
         self.readings = None
         self._dbg = system.tracker.dbg
-        self._done_upto = -1
 
     def _after_call(self, t):
-        done = self.system._last_done
-        if done is not None and done.idx > self._done_upto:
-            for i in range(self._done_upto + 1, done.idx + 1):
-                if i in self.t_in and i not in self.t_done:
-                    self.t_done[i] = t
-            self._done_upto = done.idx
+        records = self.system.world.frame_infos[self._n_records:]
+        self._n_records += len(records)
+        for info in records:
+            i = self._frame_of[info.timestamp]
+            if i in self.t_in and i not in self.t_done:
+                self.t_done[i] = t
         dbg = self.system.tracker.dbg
         if dbg is not self._dbg:
             self._dbg = dbg
@@ -251,7 +267,8 @@ class Loop:
 
 def make_inputs(config: dict, traffic: dict, seed: int, seconds: float, device):
     """(ground truth (ts, q_wc, t_wc) from the traffic's start frame, the
-    map (means, covs), the frames or pairs, the warm-up count)."""
+    map (means, covs), the frames or pairs, the warm-up count, the dark
+    frames' mask or None)."""
     from . import generate
 
     n_warm = traffic["warmup_frames"]["online" if config["online"] else "offline"]
@@ -269,14 +286,68 @@ def make_inputs(config: dict, traffic: dict, seed: int, seconds: float, device):
     world = generate.sample_world(means, covs, traffic["landmarks"],
                                   room if traffic.get("fixed_world") else seed)
     p = generator_params(config, traffic)
+    dark = generate.dark_mask(n_total, n_warm, traffic)
     if traffic["input"] == "feature_frames":
-        data = generate.feature_frames(world, q_wc, t_wc, seed, p, device)
+        data = generate.feature_frames(world, q_wc, t_wc, seed, p, device, dark=dark)
+    elif dark is not None:
+        raise BenchError(f"dark frames are made for feature frames only, not "
+                         f"{traffic['input']!r}")
     elif traffic["input"] == "stereo_images":
         contrast, size_m = generate.sprite_looks(len(world.landmarks), seed)
         data = generate.render_pairs(world, contrast, size_m, q_wc, t_wc, p, device)
     else:
         raise BenchError(f"unknown traffic input {traffic['input']!r}")
-    return (ts, q_wc, t_wc), (means, covs), data, n_warm
+    return (ts, q_wc, t_wc), (means, covs), data, n_warm, dark
+
+
+def make_vocabulary(spec: dict, means, covs, traffic: dict, device, log):
+    """The program's vocabulary as a configuration's `vocabulary` block
+    states it (k, depth, training set, seed), trained at set-up, and the
+    descriptors it was trained on."""
+    from gmmloc_tpu_torch.vocab.bow import Vocabulary
+
+    from . import generate
+
+    t0 = time.perf_counter()
+    descs = generate.vocabulary_descs(spec["train"], means, covs, traffic["landmarks"],
+                                      traffic["room_seed"])
+    voc = Vocabulary.train(descs, k=spec["k"], depth=spec["depth"], seed=spec["seed"],
+                           device=device)
+    log(f"[setup] vocabulary {voc.n_words} words (k {spec['k']}, depth {spec['depth']}) from "
+        f"{len(descs)} descriptors in {time.perf_counter() - t0:.2f}s")
+    return voc, descs
+
+
+def dropout_readings(traffic: dict, dark, n_warm: int, t_in: dict, t_done: dict,
+                     failed_at_end: bool) -> dict:
+    """What a window of a traffic with dropouts did, from the hand-in and
+    pose times of its frames (frame index -> seconds): the lit frames
+    handed in and tracked, the recovery time of each dropout that
+    recovered, the dropouts counted (their last dark frame handed in),
+    those that did not recover within `recover_within` lit frames (or
+    before a fatal failure ended the window) and the lit frames not
+    tracked outside each dropout's allowance of `recover_within` lit
+    frames after it."""
+    lit = [i for i in t_in if not dark[i]]
+    tracked = [i for i in lit if i in t_done]
+    within = traffic["recover_within"]
+    excused, recovery_s, n_dropouts, unrecovered = set(), [], 0, 0
+    first = n_warm + traffic["dark_from"]
+    for start in range(first, len(dark), traffic["dark_every"]):
+        back = start + traffic["dark_frames"]           # the first lit frame after it
+        if back - 1 not in t_in:
+            break
+        n_dropouts += 1
+        allowance = range(back, back + within)
+        excused.update(allowance)
+        pose = next((i for i in allowance if i in t_done), None)
+        if pose is not None:
+            recovery_s.append(t_done[pose] - t_in[back])
+        elif failed_at_end or allowance[-1] in t_in:
+            unrecovered += 1
+    return dict(lit=lit, tracked=tracked, recovery_s=recovery_s, dropouts=n_dropouts,
+                unrecovered=unrecovered,
+                failed_frames=sum(1 for i in lit if i not in t_done and i not in excused))
 
 
 def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda",
@@ -286,12 +357,13 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     """One run of a cell. Returns (result dict, the numbers compared
     {name: (value, limit)}, Readings). `overrides` changes the
     configuration's numbers for small CPU runs: {"frame": {...},
-    "port": {...}}. With `control` each check compares its control (the
-    first of its `CONTROLS`, or {check: control name}) in the program's
-    place, and `correct` is decided on those numbers. `warmup` replaces
-    the traffic's warm-up count, `before_window()` runs just before the
-    window (small CPU runs and the faults) and `kept_out`, when given,
-    receives what the checks captured."""
+    "port": {...}}, and with "traffic" the traffic's. With `control` each
+    check compares its control (the first of its `CONTROLS`, or {check:
+    control name}) in the program's place, and `correct` is decided on
+    those numbers. `warmup` replaces the traffic's warm-up count,
+    `before_window()` runs just before the window (small CPU runs and the
+    faults) and `kept_out`, when given, receives what the checks
+    captured."""
     import torch
 
     from . import capture
@@ -304,7 +376,10 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     config = load_json(os.path.join(HERE, "configs", cell["config"] + ".json"))
     traffic = load_json(os.path.join(HERE, "traffic", cell["traffic"] + ".json"))
     for sec, vals in (overrides or {}).items():
-        config[sec] = dict(config[sec], **vals)
+        if sec == "traffic":
+            traffic.update(vals)
+        else:
+            config[sec] = dict(config[sec], **vals)
     dev = torch.device(device)
     seed = int(seed) % (1 << 63)
 
@@ -319,15 +394,24 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     log(f"[setup] imports {time.perf_counter() - T_START:.2f}s")
     if warmup is not None:
         traffic["warmup_frames"] = {"online": warmup, "offline": warmup}
-    (ts, q_wc, t_wc), (means, covs), data, n_warm = make_inputs(config, traffic, seed, seconds,
-                                                               dev)
+    (ts, q_wc, t_wc), (means, covs), data, n_warm, dark = make_inputs(config, traffic, seed,
+                                                                     seconds, dev)
     log(f"[setup] inputs {time.perf_counter() - T_START:.2f}s")
     gmap = mixture.from_arrays(
         means, covs, dev, pad_to=cfg.caps.gmm_components_pad,
         neighbor_dist_thresh=cfg.gmm.neighbor_dist_thresh, neighbor_cap=cfg.gmm.neighbor_cap,
         degenerate_eig_thresh=cfg.gmm.degenerate_eig_thresh,
         salient_eig_thresh=cfg.gmm.salient_eig_thresh)
-    system = GMMLocSystem(cfg, gmap, dev)
+    voc = voc_descs = None
+    if "vocabulary" in config:
+        voc, voc_descs = make_vocabulary(config["vocabulary"], means, covs, traffic, dev, log)
+    # a check may follow the program from before the system is built
+    # (`prepare`); every wrapper comes off once the window has closed
+    patch = capture.Patch()
+    checks = {name: load_reader("checks", name) for name in traffic["checks"]}
+    prepared = {name: mod.prepare(patch, seed) for name, mod in checks.items()
+                if hasattr(mod, "prepare")}
+    system = GMMLocSystem(cfg, gmap, dev, vocabulary=voc)
     tracer = Tracer(trace)
     images = frontend = frames = None
     if traffic["input"] == "stereo_images":
@@ -359,17 +443,17 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     for i in range(n_warm):
         hand_in(i)
         if system.track_failed:
+            patch.undo()
             raise BenchError(f"tracking failed at warm-up frame {i}")
     sync()
 
     # the window
     if before_window is not None:
         before_window()
-    patch = capture.Patch()
     program = types.SimpleNamespace(frontend=frontend, images=images, gmm_means=means,
-                                    gmm_covs=covs, config=config)
-    kept = {name: load_reader("checks", name).install(patch, seed, program)
-            for name in traffic["checks"]}
+                                    gmm_covs=covs, config=config, system=system,
+                                    vocabulary_descs=voc_descs, prepared=prepared)
+    kept = {name: mod.install(patch, seed, program) for name, mod in checks.items()}
     timing.reset()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -379,6 +463,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     gc.freeze()
     # the trace covers the window's last seconds (all of a short window)
     trace_at = max(0.0, seconds - TRACE_SECONDS) if trace else math.inf
+    n_recoveries = len(system.recovery_frames)
     r.setup_s = time.perf_counter() - T_START
     log(f"[setup] warm-up {r.setup_s:.2f}s")
     use0 = resource.getrusage(resource.RUSAGE_SELF)
@@ -409,6 +494,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
         loop.recording = False
     finally:
         use1 = resource.getrusage(resource.RUSAGE_SELF)
+        patch.undo()
         gc.unfreeze()
         r.trace = tracer.stop()
     log(f"[window] {t_w1 - t_w0:.2f}s, {i - n_warm} frames handed in; process cpu "
@@ -419,24 +505,38 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     r.window_s = t_w1 - t_w0
     with timing.REGISTRY.lock:
         r.timers = {k: (a.count, a.total) for k, a in timing.REGISTRY.accs.items()}
-    r.attempted = len(loop.t_in)
-    r.latency_s = [loop.t_done[k] - loop.t_in[k] for k in sorted(loop.t_done)]
+    kf, ba = r.timers.get("kf/process", (0, 0.0)), r.timers.get("loc/ba", (0, 0.0))
+    log(f"[window] {kf[0]} keyframes made, {ba[0]} local BAs in {ba[1]:.2f}s")
+    failed_at_end = bool(system.track_failed)
+    attempted, tracked = list(loop.t_in), sorted(loop.t_done)
+    if dark is not None:
+        drop = dropout_readings(traffic, dark, n_warm, loop.t_in, loop.t_done, failed_at_end)
+        attempted, tracked = drop["lit"], drop["tracked"]
+        r.recovery_s, r.dropouts = drop["recovery_s"], drop["dropouts"]
+        r.recoveries = len(system.recovery_frames) - n_recoveries
+        log(f"[window] {r.dropouts} dropouts, {len(r.recovery_s)} recovered, recovery "
+            f"{[round(x * 1e3, 1) for x in r.recovery_s]} ms; {len(attempted)} lit frames, "
+            f"{len(tracked)} tracked; the system relocalized {r.recoveries} times")
+    r.attempted = len(attempted)
+    r.latency_s = [loop.t_done[k] - loop.t_in[k] for k in tracked]
     r.frames = len(r.latency_s)
     if loop.t_trace is not None:
-        r.trace_frames = sum(1 for k in loop.t_done if loop.t_in[k] >= loop.t_trace)
+        r.trace_frames = sum(1 for k in tracked if loop.t_in[k] >= loop.t_trace)
     memory_peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-    patch.undo()
-    failed_at_end = bool(system.track_failed)
     system.stop()
     est_ts, _, est_t = system.export_trajectory()
     if len(est_ts) >= 3:
         from . import arith
 
         r.ate_rmse_m, _ = arith.ate_rmse(est_ts, est_t, ts, t_wc, with_scale=True)
-    del system, frontend, gmap, frames, loop
+    del system, frontend, gmap, frames, loop, voc, program
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+    if dark is not None and r.dropouts < traffic["min_dropouts"] and not failed_at_end:
+        raise BenchError(f"the window held {r.dropouts} dropouts, fewer than the traffic's "
+                         f"{traffic['min_dropouts']}")
 
     # correct: the sample of the window's answers against the reference
     # (with `control`, the control's answers in the program's place)
@@ -444,8 +544,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
     torch.set_num_threads(os.cpu_count() or THREADS)
     ref = reference_params(config)
     compared, missing = {}, []
-    for name in traffic["checks"]:
-        mod = load_reader("checks", name)
+    for name, mod in checks.items():
         ctl = None
         if control:
             ctl = control.get(name) if isinstance(control, dict) else \
@@ -457,7 +556,11 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device="cuda
             compared[k] = (v, mod.LIMITS[k])
     if kept_out is not None:
         kept_out.update(kept, ref=ref)
-    compared["failed_frames"] = (r.attempted - r.frames, 0)
+    if dark is None:
+        compared["failed_frames"] = (r.attempted - r.frames, 0)
+    else:
+        compared["failed_frames"] = (drop["failed_frames"], 0)
+        compared["unrecovered_dropouts"] = (drop["unrecovered"], 0)
     correct = (not missing and not failed_at_end
                and all(v <= lim for v, lim in compared.values()))
     if missing:

@@ -18,7 +18,10 @@ from gmmloc_tpu_torch.features import cuda_kernels
 from gmmloc_tpu_torch.mapping import association
 from gmmloc_tpu_torch.pipeline import frontend as fe_mod
 from gmmloc_tpu_torch.solver import local_ba, pose_solver
+from gmmloc_tpu_torch.tracking import relocalize
+from gmmloc_tpu_torch.vocab import bow
 from portbench import run
+from portbench.tests.test_portbench_blackouts import run_blackouts
 
 CUT = dict(frame=dict(feat_cap=256, num_features=240),
            port={"frame.feat_cap": 256, "frame.num_features": 240,
@@ -33,6 +36,7 @@ def _run(cell, seconds, before_window=None, control=False, seed=2**31 + 21):
 
 
 @pytest.mark.parametrize("cell,seconds", [("v1_offline_features", 12.0),
+                                          ("v1_online_features", 12.0),
                                           ("v1_online_images", 40.0)])
 def test_sound_run_is_correct_and_control_fails(cell, seconds):
     """A sound run is correct; a `--control` run (the control's answers in
@@ -76,6 +80,34 @@ def _fault(monkeypatch, name):
                 # every accepted association moved to the next component
                 return cand, torch.where(assoc >= 0, assoc + 1, assoc), pt
             monkeypatch.setattr(association, "associate_and_check_kernel", kernel)
+        elif name == "reloc_words_altered":
+            def descend(self, desc):
+                words = orig_descend(self, desc)
+                # every word moved to the next one
+                return torch.where(words >= 0, (words + 1) % self.n_words, words)
+            monkeypatch.setattr(bow.Vocabulary, "descend", descend)
+        elif name in ("reloc_pose_unchanged", "reloc_pose_half_batch"):
+            inside = []
+
+            def reloc(self, frame):
+                inside.append(True)
+                try:
+                    return orig_reloc(self, frame)
+                finally:
+                    inside.pop()
+
+            def solve(cam, q0, t0, x_w, obs, st, s2i, valid, *a, **kw):
+                if not inside:
+                    return orig_k1(cam, q0, t0, x_w, obs, st, s2i, valid, *a, **kw)
+                if name == "reloc_pose_half_batch":
+                    valid = valid.clone()
+                    valid[1::2] = False
+                out = orig_k1(cam, q0, t0, x_w, obs, st, s2i, valid, *a, **kw)
+                if name == "reloc_pose_unchanged":
+                    out = out._replace(q=q0.clone(), t=t0.clone())
+                return out
+            monkeypatch.setattr(relocalize.Relocalizer, "relocalize", reloc)
+            monkeypatch.setattr(pose_solver, "optimize_pose", solve)
         elif name == "frontend_altered":
             def packed(self, left, right):
                 table, desc = orig_packed(self, left, right)
@@ -89,6 +121,9 @@ def _fault(monkeypatch, name):
     orig_ba = local_ba.solve_local_ba
     orig_packed = fe_mod.ImageFrontend._packed
     orig_assoc = association.associate_and_check_kernel
+    orig_descend = bow.Vocabulary.descend
+    orig_reloc = relocalize.Relocalizer.relocalize
+    orig_k1 = pose_solver.optimize_pose
     return plant
 
 
@@ -98,8 +133,38 @@ def _fault(monkeypatch, name):
     ("v1_offline_features", "k3_altered"),
     ("v1_offline_features", "ba_unchanged"),
     ("v1_offline_features", "assoc_altered"),
+    ("v1_online_features", "pose_half_batch"),
+    ("v1_online_features", "ba_unchanged"),
     ("v1_online_images", "frontend_altered"),
 ])
 def test_fault_turns_correct_false(monkeypatch, cell, fault):
     res, compared = _run(cell, 12.0, before_window=_fault(monkeypatch, fault))
     assert not res["correct"], compared
+
+
+@pytest.mark.parametrize("fault", ["reloc_words_altered", "reloc_pose_unchanged",
+                                   "reloc_pose_half_batch"])
+def test_relocalization_fault_turns_correct_false(monkeypatch, fault):
+    """A fault in the relocalization (a word altered where the descent
+    produces it; the recovered pose solve returning its start, or
+    solving over half its features) turns a blackout run's `correct`
+    false."""
+    res, compared, _ = run_blackouts(before_window=_fault(monkeypatch, fault))
+    assert not res["correct"], compared
+
+
+def test_postings_altered_before_the_window_turn_correct_false(monkeypatch):
+    """The program's inverted file losing a posting of each keyframe
+    added before the window (its stored BoW vectors intact): the
+    reference builds its own from every keyframe added since the system
+    was built, so the postings differ at the window's start."""
+    orig_add, warm = bow.KeyFrameDatabase.add, [True]
+
+    def add(self, kf, descs, valid=None):
+        orig_add(self, kf, descs, valid)
+        if warm[0]:
+            self.inv[int(self.bow[kf][0][0])].pop(kf)
+
+    monkeypatch.setattr(bow.KeyFrameDatabase, "add", add)
+    res, compared, _ = run_blackouts(before_window=lambda: warm.__setitem__(0, False))
+    assert not res["correct"] and compared["reloc_postings_differing"][0] > 0, compared

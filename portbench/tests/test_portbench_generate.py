@@ -150,3 +150,79 @@ def test_render_equals_port():
             ours = generate.render(w, contrast, size_m, q[k], t[k], p, right, "cpu").numpy()
             diff = np.abs(ours.astype(int) - ref.astype(int))
             assert diff.max() <= 1 and (diff > 0).mean() < 1e-4
+
+
+def _inputs_digest(cell: str, seed: int, seconds: float, warm: int, **traffic_keys):
+    """sha256 over the ground truth, the map and every frame or pair that
+    `run.make_inputs` makes for a cell (warm-up `warm`), and the count."""
+    import hashlib
+
+    bench = run.load_json(os.path.join(ROOT, "BENCHMARK.json"))
+    c = run.find_cell(bench, cell)
+    config = run.load_json(os.path.join(ROOT, "portbench", "configs", c["config"] + ".json"))
+    traffic = run.load_json(os.path.join(ROOT, "portbench", "traffic", c["traffic"] + ".json"))
+    traffic.update(traffic_keys, warmup_frames={"online": warm, "offline": warm})
+    (ts, q, t), (m, cv), data, _, _ = run.make_inputs(config, traffic, seed, seconds, "cpu")
+    h = hashlib.sha256()
+    for a in (ts, q, t, m, cv):
+        h.update(np.ascontiguousarray(a).tobytes())
+    for f in data:
+        parts = [f[k] for k in ("uv", "ur", "depth", "octave", "angle", "desc")] \
+            if isinstance(f, dict) else f
+        for a in parts:
+            h.update(np.ascontiguousarray(a).tobytes())
+    return len(data), h.hexdigest()
+
+
+@pytest.mark.parametrize("cell,seed,seconds,digest", [
+    ("v1_offline_features", 2**31 + 17, 0.5,
+     "e4fc0eda180066d04b3aec6a7806b5d74dd90e3a2d35d92509e9bec90ce455a5"),
+    ("v1_online_images", 2**31 + 18, 0.1,
+     "e877fd8c135d25ebbacc5693e8eb5a3fbceca31c2d40868ef2497f834cbeba72"),
+])
+def test_existing_traffics_make_the_same_inputs(cell, seed, seconds, digest):
+    """The traffics without dropouts make byte for byte the inputs the
+    generator made before it had dark stretches (the digests were taken
+    from that generator on the CPU at these seeds and sizes)."""
+    n, got = _inputs_digest(cell, seed, seconds, 2)
+    assert got == digest and n == 2 + int(np.ceil(seconds * (60 if "features" in cell else 20))) + 1
+
+
+def test_dark_mask():
+    traffic = dict(dark_every=10, dark_frames=3, dark_from=4)
+    dark = generate.dark_mask(40, 5, traffic)
+    assert np.nonzero(dark)[0].tolist() == [9, 10, 11, 19, 20, 21, 29, 30, 31, 39]
+    assert generate.dark_mask(40, 5, {}) is None
+
+
+def test_dark_frames_leave_the_lit_frames_as_they_were():
+    """A traffic with dark stretches draws what the one without draws: its
+    lit frames are byte for byte the same, its dark ones keep only the
+    spurious detections."""
+    _, _, w, _ = _world_pair(n_lm=2000)
+    ts, q, t = generate.room_trajectory(40, seed=1)
+    config = run.load_json(os.path.join(ROOT, "portbench", "configs", "euroc_v1_online.json"))
+    traffic = run.load_json(os.path.join(ROOT, "portbench", "traffic",
+                                         "feature_blackouts.json"))
+    p = run.generator_params(config, traffic)
+    dark = generate.dark_mask(40, 5, dict(traffic, dark_every=12, dark_from=3))
+    lit = generate.feature_frames(w, q, t, 2**31 + 11, p, "cpu", chunk=16)
+    mixed = generate.feature_frames(w, q, t, 2**31 + 11, p, "cpu", chunk=16, dark=dark)
+    _, n_spurious = generate.feature_budget(p)
+    assert dark.sum() == 18
+    for k, (a, b) in enumerate(zip(lit, mixed)):
+        if dark[k]:
+            assert len(b["uv"]) == n_spurious
+            for key in a:
+                assert np.array_equal(b[key], a[key][-n_spurious:]), key
+        else:
+            for key in a:
+                assert np.array_equal(a[key], b[key]), key
+
+
+def test_vocabulary_descs_are_the_rooms_landmarks():
+    means, covs = generate.room_gmm(200, 3)
+    d = generate.vocabulary_descs("landmark_desc_every_4", means, covs, 3000, 3)
+    assert np.array_equal(d, generate.sample_world(means, covs, 3000, 3).desc[::4])
+    with pytest.raises(ValueError):
+        generate.vocabulary_descs("orbvoc", means, covs, 3000, 3)

@@ -26,10 +26,11 @@ _REFERENCE = """
 import json, sys
 import portbench.reference, portbench.generate, portbench.arith, portbench.peaks
 import portbench.trace, portbench.capture
-from portbench.reference import (association, camera, detect, factors, fast, frontend, hamming,
-                                 local_ba, numerics, orb, pose_solver, pyramid, se3, stereo)
+from portbench.reference import (association, bow, camera, detect, factors, fast, frontend,
+                                 hamming, local_ba, numerics, orb, pose_solver, pyramid, se3,
+                                 stereo)
 from portbench.checks import (association as assoc_check, ba, frontend as fe_check,
-                              matching as k3_check, pose)
+                              matching as k3_check, pose, reloc)
 print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
 """
 
@@ -63,7 +64,8 @@ def test_forbidden_compares_whole_top_level_names(monkeypatch):
     assert "jaxlib" in run.forbidden_modules()
 
 
-@pytest.mark.parametrize("cell", ["v1_online_images", "v1_offline_features"])
+@pytest.mark.parametrize("cell", ["v1_online_images", "v1_offline_features",
+                                  "v1_online_features"])
 def test_refuses_without_a_card(cell):
     """No fallback to the CPU: no card, a non-zero exit and no result."""
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")

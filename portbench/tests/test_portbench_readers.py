@@ -131,13 +131,16 @@ def test_anchor_log_matches_the_port():
     class Tracker:
         dbg = {}
 
+    class World:
+        frame_infos = []
+
     class System:
         tracker = Tracker()
-        _last_done = None
+        world = World()
 
     sysm = System()
     log = _AnchorLog(sysm)
-    loop = run.Loop(sysm, trace.Tracer(False), (None, None, None))
+    loop = run.Loop(sysm, trace.Tracer(False), ((), None, None))
     loop.readings, loop.recording = run.Readings(), True
     for d in ({"n_anchors": 4}, None, {"path": "classic"}, {"n_anchors": 0}, None):
         if d is not None:
@@ -149,3 +152,16 @@ def test_anchor_log_matches_the_port():
 
 def test_spread():
     assert arith.spread([1, 2, 3, 4, 5, 6]) == pytest.approx((5.25 - 1.75) / 3.5)
+
+
+def test_recovery_and_relocalization_readers():
+    timers = {"reloc/relocalize": (8, 0.4), "reloc/attempt": (12, 0.3)}
+    r = _readings(timers=timers, recovery_s=[0.2, 0.05, 0.1, 0.4], recoveries=3)
+    assert run.load_reader("end_to_end", "recovery_ms_p50").read(r) == pytest.approx(150.0)
+    assert run.load_reader("metrics", "reloc.relocalize_ms").read(r) == pytest.approx(50.0)
+    assert run.load_reader("metrics", "reloc.attempts_per_recovery").read(r) == pytest.approx(4.0)
+    # a run with no dropout, or no relocalization, has nothing to read
+    empty = _readings()
+    for kind, name in (("end_to_end", "recovery_ms_p50"), ("metrics", "reloc.relocalize_ms"),
+                       ("metrics", "reloc.attempts_per_recovery")):
+        assert run.load_reader(kind, name).read(empty) is None
